@@ -5,10 +5,12 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 sm_90a):
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # plus one request under torch.profiler
+    python3 chip_smoke.py --profile   # plus the kernel's phase clocks and
+                                      # one request under torch.profiler
 
-It builds the port's CUDA kernel from ``ml_conformer_generator_tpu_torch/
-csrc/edge_mlp.cu`` with ``nvcc`` and drives the port's main path, the
+It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
+csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32, one
+``nvcc`` each, side by side) and drives the port's main path, the
 reference-conditioned ``MLConformerGenerator.generate_conformers``, at full
 width (EGNN 420 x 9 blocks in bf16, AdjMatSeer 2048) with random weights
 made from a seed. Phases:
@@ -16,14 +18,20 @@ made from a seed. Phases:
 1. environment: device, name and power limit from nvidia-smi; TF32 off;
 2. build: ``nvcc`` for sm_90a, with the build time;
 3. kernel: each edge-pass mode (gcl, coord) in bf16 and f32 against its
-   plain PyTorch version on the card, at the production shape (B=128, N=40)
-   and at the shape this run's request gives it; kernel, plain and library
-   times (CUDA events) beside the bound;
+   plain PyTorch version on the card, at the production shape (B=128, N=40),
+   at a shape with more than 48 nodes (B=16, N=64), at one whose graphs do
+   not fill their last tile of target nodes (B=5, N=40) and at the shape
+   this run's request gives it; kernel, plain and library times (CUDA
+   events) beside the bound; then the cache of packed W1: a second launch
+   packs nothing, an in-place change of W1 packs again and changes the
+   result;
 4. model: one full-width bf16 ``dynamics_forward`` through the kernel
    against the same forward through the plain version;
 5. end to end: a short f32 generation through the kernel against the same
-   generation through the plain version, then ``generate_conformers`` twice
-   (warm-up, timed) with exact launch counts.
+   generation through the plain version, a short bf16 generation of
+   molecules of up to 60 atoms, then ``generate_conformers`` twice
+   (warm-up, timed) with exact launch counts and no W1 packed in the timed
+   one.
 
 Any failed check raises, so the script exits non-zero and does not print its
 last line, ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -39,7 +47,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "ml_conformer_generator_tpu_torch"
-KERNEL_SOURCE = f"{PACKAGE}/csrc/edge_mlp.cu"
+KERNEL_SOURCE = f"{PACKAGE}/csrc/edge_mlp.cu"      # bf16: the main path
+KERNEL_SOURCES = (KERNEL_SOURCE, f"{PACKAGE}/csrc/edge_mlp_f32.cu")
 TPU_KERNEL = "ml_conformer_generator_tpu/ops/gcl_kernel.py:160"
 
 # The request: 64 samples, variance 2, 100 steps, around this reference.
@@ -120,6 +129,29 @@ def edge_pass_bound(B, N, H, E, dtype_name, mode):
                                        else "bytes")
 
 
+# Work of the bf16 kernel outside the tensor cores, per element of the
+# (B N^2, 448) edge tensors (448: H padded to the kernel's width), as
+# csrc/edge_mlp.cu is written. Special-function unit: one tanh.approx for
+# each of the two SiLUs. Other f32/integer instructions: building m1 about
+# 9.5 (add u + v, two edge-scalar FMAs, round, halve, fused multiply-add,
+# round, a share of the loads and the store), the epilogue about 7.5 (bias,
+# the same SiLU, the head's FMA); gcl adds about 4 (gate product, pack,
+# store, and the j-sum's unpack and FMA).
+MUFU_PER_ELEMENT = 2.0
+ALU_PER_ELEMENT = {"gcl": 21.0, "coord": 17.0}
+MUFU_LANES, ALU_LANES, PADDED_WIDTH = 16, 128, 448
+
+
+def elementwise_floor_us(B, N, mode, sms, clock_hz):
+    """Least time (us) of the bf16 kernel's elementwise work on this card:
+    the larger of its special-function and its other instructions, at 16
+    and 128 lanes per SM and clock."""
+    elements = float(B) * N * N * PADDED_WIDTH
+    mufu = elements * MUFU_PER_ELEMENT / (MUFU_LANES * sms * clock_hz)
+    alu = elements * ALU_PER_ELEMENT[mode] / (ALU_LANES * sms * clock_hz)
+    return max(mufu, alu) * 1e6
+
+
 def edge_inputs(torch, B, N, H, dtype, sizes, seed):
     """Edge-pass operands on the card, laid out as the model passes them:
     w_e is the (H, E) column block of the first edge layer (row stride
@@ -154,10 +186,11 @@ def plain_edge_pass(gk):
         gk.fused_edge_pass = kernel
 
 
-def kernel_phase(torch, gk, B, N, sizes, H=420):
+def kernel_phase(torch, gk, B, N, sizes, card, H=420):
     """Each mode x type at (B, N, H): held against the plain version, then
     timed beside the plain version, one torch.matmul of the inner GEMM and
-    the bound. Returns one record per (mode, type)."""
+    the bound. ``card``: (SMs, SM clock in Hz) for the elementwise floor.
+    Returns one record per (mode, type)."""
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).replace("torch.", "")
@@ -197,10 +230,95 @@ def kernel_phase(torch, gk, B, N, sizes, H=420):
             rec["bound_us"] = bound_ms * 1e3
             rec["bound_by"] = bound_by
             rec["share_of_bound"] = bound_ms / rec["kernel_ms"]
+            if dtype == torch.bfloat16:
+                rec["elementwise_floor_us"] = elementwise_floor_us(
+                    B, N, mode, *card)
             del x
             log(json.dumps(rec))
             out.append(rec)
     return out
+
+
+def pack_cache_phase(torch, gk, B=8, N=32, H=420):
+    """The packed W1 is made once per weight: a second launch packs
+    nothing; an in-place change of W1 packs again and changes the result."""
+    a, _ = edge_inputs(torch, B, N, H, torch.bfloat16, (N // 2, N), seed=7)
+    gk.reset_pack_count()
+    first = gk.fused_edge_pass(**a, mode="gcl")
+    packs_first = gk.PACKS
+    second = gk.fused_edge_pass(**a, mode="gcl")
+    packs_second = gk.PACKS
+    a["w1"].mul_(0.5)
+    third = gk.fused_edge_pass(**a, mode="gcl")
+    ref = gk.fused_edge_pass_reference(**a, mode="gcl").float()
+    torch.cuda.synchronize()
+    rec = {"packs_first_launch": packs_first,
+           "packs_second_launch": packs_second - packs_first,
+           "packs_after_inplace_change": gk.PACKS - packs_second,
+           "same_result_twice": torch.equal(first, second),
+           "change_of_result": (third - first).abs().max().item(),
+           "max_abs_err_after_change": (third - ref).abs().max().item()}
+    log(f"[kernel] packed W1 cache: {json.dumps(rec)}")
+    check(packs_first == 1 and packs_second == packs_first,
+          f"W1 is not packed exactly once: {rec}")
+    check(rec["packs_after_inplace_change"] == 1,
+          f"an in-place change of W1 did not repack: {rec}")
+    check(rec["same_result_twice"], f"two launches disagree: {rec}")
+    check(rec["change_of_result"] > 1e-3,
+          f"the changed W1 did not change the result: {rec}")
+    atol, rtol = TOLERANCE["bfloat16", "gcl"]
+    check(((third - ref).abs() <= atol + rtol * ref.abs()).all().item(),
+          f"after the change the kernel disagrees with plain: {rec}")
+
+
+PHASES = ["build_m1", "product_half0", "epilogue_half0", "product_half1",
+          "epilogue_half1", "gate_and_store", "jsum_and_tile_end"]
+
+
+def phase_clocks(torch, gk, B, N, sizes, H=420):
+    """Where a block of the bf16 kernel spends its clocks: one launch per
+    mode through the library's C entry with its optional clock buffer (the
+    first thread of each block adds the SM's clocks between phases; the
+    package's wrapper always passes none). Only with ``--profile``."""
+    import ctypes
+
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = ctypes.CDLL(gk.build_kernel()["edge_mlp"])
+    lib.mlcg_edge_mlp.restype = ci
+    lib.mlcg_edge_mlp.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci,
+                                  vp, vp, vp, vp, vp, cf, vp, vp, vp]
+    lib.mlcg_edge_mlp_prof_slots.restype = ci
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a, _ = edge_inputs(torch, B, N, H, torch.bfloat16, sizes, seed=B * N)
+    w1p = gk.packed_w1(a["w1"])
+    ptr = {k: t.data_ptr() for k, t in a.items()}
+    for mode in ("gcl", "coord"):
+        gcl = mode == "gcl"
+        clocks = torch.zeros(sms, lib.mlcg_edge_mlp_prof_slots(),
+                             dtype=torch.int64, device="cuda")
+        out = torch.empty((B, N, H) if gcl else (B, N * N, 1),
+                          dtype=torch.float32, device="cuda")
+        rc = lib.mlcg_edge_mlp(
+            0 if gcl else 1, B, N, H, 2, ptr["u"], ptr["v"], ptr["ef"],
+            ptr["em"] if gcl else None, ptr["w_e"], a["w_e"].stride(0),
+            ptr["b0"], w1p.data_ptr(), ptr["b1"], ptr["wh"],
+            ptr["bh"] if gcl else None, 100.0, out.data_ptr(),
+            clocks.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        check(rc == 0, f"phase-clock launch failed with CUDA error {rc}")
+        args = dict(a)
+        if not gcl:
+            args["em"], args["bh"] = None, None
+        check(torch.equal(out, gk.fused_edge_pass(**args, mode=mode)),
+              "the clocked launch and the wrapper's disagree")
+        per_block = clocks.sum(0).double() / clocks.shape[0]
+        total = per_block.sum().item()
+        log("[profile] " + json.dumps({
+            "phase_clocks": {"B": B, "N": N, "H": H, "mode": mode},
+            "clocks_per_block": {n: int(c) for n, c in
+                                 zip(PHASES, per_block.tolist())},
+            "share": {n: round(c / total, 4) for n, c in
+                      zip(PHASES, per_block.tolist())}}))
 
 
 def profile_request(torch, gen, kw, req_s):
@@ -254,10 +372,19 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
+    max_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True
+    ).stdout.strip().splitlines()[0])
+    card = (torch.cuda.get_device_properties(0).multi_processor_count,
+            max_clock_mhz * 1e6)
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}; device {kind}; "
         f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
     log("[env] TF32 off for matmul and cuDNN: f32 is full f32 everywhere")
+    log(f"[env] {card[0]} SMs, max SM clock {max_clock_mhz:.0f} MHz (for "
+        f"the elementwise floor)")
 
     from ml_conformer_generator_tpu_torch.chem import native
     from ml_conformer_generator_tpu_torch.chem.mol import Molecule
@@ -272,14 +399,27 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     gk.build_kernel(verbose=True)
-    regs = [int(line.split("Used ")[1].split()[0])
-            for line in gk.BUILD_INFO["log"].splitlines()
+    build_log = gk.BUILD_INFO["log"].splitlines()
+    regs = [int(line.split("Used ")[1].split()[0]) for line in build_log
             if "Used " in line and "registers" in line]
-    spills = [line.strip() for line in gk.BUILD_INFO["log"].splitlines()
+    spills = [line.strip() for line in build_log
               if "spill" in line and not line.strip().startswith("0 bytes")]
-    log(f"[build] nvcc sm_90a {KERNEL_SOURCE}: "
+    # ptxas C7511: wgmma serialized for want of registers.
+    serialized = sum("C7511" in line or "instructions are serialized" in line
+                     for line in build_log)
+    log(f"[build] nvcc sm_90a {', '.join(KERNEL_SOURCES)} (side by side): "
         f"{time.perf_counter() - t0:.1f} s, {len(regs)} instantiations, "
-        f"registers {min(regs)}..{max(regs)}, spilling: {spills or 'none'}")
+        f"registers {min(regs)}..{max(regs)}, spilling: {spills or 'none'}, "
+        f"wgmma serialized (ptxas C7511): {serialized or 'no'}")
+    if "--profile" in sys.argv[1:]:
+        # ptxas's report of the bf16 kernel's instantiations, as it gave it.
+        for i, line in enumerate(build_log):
+            if "instructions are serialized" in line:
+                log("[build] " + line.strip())
+            if "Compiling entry function" in line and "bf16" in line:
+                log("[build] " + " | ".join(
+                    l.replace("ptxas info    :", "").strip()
+                    for l in build_log[i:i + 4]))
 
     # -- 3. kernel -----------------------------------------------------------
     ref_n = len(_REFERENCE)
@@ -287,9 +427,14 @@ def main() -> int:
     n_pad = pad_to_bucket(max_n, 8)
     log(f"[kernel] production shape B=128 N=40, request shape "
         f"B={N_SAMPLES} N={n_pad}")
-    kernel_phase(torch, gk, 128, 40, (15, 39))
-    path = kernel_phase(torch, gk, N_SAMPLES, n_pad, (ref_n - VARIANCE,
-                                                      max_n))
+    kernel_phase(torch, gk, 128, 40, (15, 39), card)
+    log("[kernel] more than 48 nodes (B=16 N=64), and graphs that do not "
+        "fill their last tile (B=5 N=40: 3 target nodes a tile)")
+    kernel_phase(torch, gk, 16, 64, (40, 64), card)
+    kernel_phase(torch, gk, 5, 40, (15, 39), card)
+    path = kernel_phase(torch, gk, N_SAMPLES, n_pad,
+                        (ref_n - VARIANCE, max_n), card)
+    pack_cache_phase(torch, gk)
 
     # -- 4. model: full-width bf16 forward, kernel against plain ---------------
     cfg = EGNNConfig(compute_dtype="bfloat16")
@@ -365,6 +510,22 @@ def main() -> int:
     check(torch.equal(hk, hp), "atom types differ between kernel and plain")
     del small
 
+    # 5a'. larger molecules: max_n_nodes=60 pads the node axis to 64, which
+    # the bf16 kernel takes (it takes up to 128 nodes)
+    big = MLConformerGenerator(diffusion_steps=2, seed=4, max_n_nodes=60)
+    big_samples = recorded(big)
+    gk.reset_launch_counts()
+    big.edm_samples(ref_context, n_samples=4, min_n_nodes=50, max_n_nodes=60)
+    torch.cuda.synchronize()
+    xb = big_samples[-1][0]
+    log(f"[e2e] bf16 T=2 B=4 generation with up to 60 atoms: x "
+        f"{tuple(xb.shape)}, launches {dict(gk.LAUNCHES)}")
+    check(tuple(xb.shape) == (4, 64, 3) and torch.isfinite(xb).all().item(),
+          "generation with max_n_nodes=60 failed")
+    check(gk.LAUNCHES == {"gcl": 18 * 3, "coord": 9 * 3},
+          f"launches with max_n_nodes=60: {gk.LAUNCHES}")
+    del big
+
     # 5b. the request, at full width in bf16
     t0 = time.perf_counter()
     gen = MLConformerGenerator(diffusion_steps=STEPS, seed=0)
@@ -375,21 +536,29 @@ def main() -> int:
     samples = recorded(gen)
     kw = dict(reference_conformer=reference, n_samples=N_SAMPLES,
               variance=VARIANCE, optimise_geometry=True)
+    gk.reset_pack_count()
     t0 = time.perf_counter()
     gen.generate_conformers(**kw)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
+    warm_packs = gk.PACKS
     gk.reset_launch_counts()
+    gk.reset_pack_count()
     t0 = time.perf_counter()
     valid = gen.generate_conformers(**kw)
     torch.cuda.synchronize()
     req_s = time.perf_counter() - t0
     e2e_launches = dict(gk.LAUNCHES)
+    e2e_packs = gk.PACKS
     want = {"gcl": 18 * (STEPS + 1), "coord": 9 * (STEPS + 1)}
     x, h, nm = samples[-1]
     nonfinite = int((~torch.isfinite(x)).flatten(1).any(1).sum().item())
     check(e2e_launches == want,
           f"request launches {e2e_launches}, expected {want}")
+    check(warm_packs == 3 * cfg.n_blocks and e2e_packs == 0,
+          f"W1 packs: {warm_packs} in the warm-up request (expected one per "
+          f"edge MLP, {3 * cfg.n_blocks}), {e2e_packs} in the timed one "
+          f"(expected 0)")
     check(tuple(x.shape) == (N_SAMPLES, n_pad, 3)
           and tuple(h.shape) == (N_SAMPLES, n_pad, 8),
           f"sample shapes {tuple(x.shape)} {tuple(h.shape)}")
@@ -404,6 +573,7 @@ def main() -> int:
            "request_s": req_s, "samples_per_s": N_SAMPLES / req_s,
            "valid": len(valid), "nonfinite_samples": nonfinite,
            "launches": e2e_launches,
+           "w1_packs_warmup": warm_packs, "w1_packs": e2e_packs,
            "edge_kernel_s_estimate": edge_s,
            "edge_kernel_share_of_sampling": edge_s
            / gen.last_metrics["edm_sampling_s"],
@@ -413,6 +583,8 @@ def main() -> int:
     log("[e2e] random weights: 0 valid molecules and diverging coordinates "
         "are expected and are not a failure")
     if "--profile" in sys.argv[1:]:
+        phase_clocks(torch, gk, N_SAMPLES, n_pad, (ref_n - VARIANCE, max_n))
+        phase_clocks(torch, gk, 128, 40, (15, 39))
         profile_request(torch, gen, kw, req_s)
 
     kernels = []

@@ -1,45 +1,89 @@
-// Fused EGNN edge pass for Hopper (sm_90a).
+// Fused EGNN edge pass in bfloat16 for Hopper (sm_90a): the main path.
 //
-// Replaces the TPU kernel ml_conformer_generator_tpu/ops/gcl_kernel.py::_edge_kernel.
-// For one graph b and one target node i it computes, for every source node
-// j < N:
-//   pre_ij = u_i + v_j + e_ij . W_e + b0          (rounded to T)
-//   m1_ij  = SiLU(pre_ij)                          (rounded to T)
-//   m2_ij  = SiLU(m1_ij . W1^T + b1)               (f32 accumulate, rounded to T)
-//   head_ij = m2_ij . wh + bh                      (f32)
-// mode GCL:   out_i = sum_j round_T(m2_ij * round_T(sigmoid(head_ij))) * em_ij / norm
+// Replaces the TPU kernel ml_conformer_generator_tpu/ops/gcl_kernel.py::_edge_kernel
+// (both of its modes). For every graph b, target node i and source node j < N:
+//   pre_ij = u_i + v_j + e_ij . W_e + b0           (f32, rounded to bf16)
+//   m1_ij  = SiLU(pre_ij)                           (rounded to bf16)
+//   m2_ij  = SiLU(m1_ij . W1^T + b1)                (f32 accumulate, rounded to bf16)
+//   head_ij = m2_ij . wh + bh                       (f32)
+// mode GCL:   out_i = sum_j round(m2_ij * round(sigmoid(head_ij))) * em_ij / norm
 // mode COORD: out_ij = head_ij
 //
-// What bounds it: at the main path's shapes (B=128, N=40, H=420) the m1 . W1
-// product is 2*B*N^2*H^2 = 72 GFLOP against ~19 MB of inputs and outputs, so
-// the pass is bound by tensor-core operations, not by device memory. The
-// design keeps every per-edge tensor (pre, m1, m2, the gate) in shared memory
-// and registers; only per-node rows, per-edge scalars and W1 are read from
-// device memory, and only the per-node aggregate (or the per-edge scalar) is
-// written.
+// What bounds it: at the main path's shapes (B = 64..128, N = 32..40, H = 420)
+// the m1 . W1 product is 2 B N^2 H^2 operations (tens of GFLOP) against a few
+// MB of inputs and outputs, so tensor-core operations bound it, not device
+// memory. The two SiLUs per edge element load the special-function and f32
+// units nearly as much: 2 B N^2 448 of them a launch. Every per-edge tensor
+// stays in shared memory and registers; only per-node rows, per-edge scalars
+// and W1 are read from device memory.
 //
-// Layout: 256 threads (8 warps) serve one target node; in bf16 a block
-// serves two target nodes (512 threads), which share the W1 stream. N <= 48
-// (three 16-row tiles of source nodes).
-// W1 (420x420) does not fit a block's shared memory beside m1 in either
-// type, so it is streamed through a 3-stage ring of K-tiles of 16 with
-// cp.async (8-byte chunks, zero-filled past H), served from L2, so that the
-// next tiles' loads overlap the current tile's products. bf16 runs the
-// product on the tensor cores with mma.sync m16n8k16 and f32 accumulation;
-// f32 runs it as plain FMA in full f32 (no TF32). The elementwise work (two
-// SiLUs per edge element) costs as much as the product at these widths: in
-// bf16 it uses the fast hardware exp and divide (its result is rounded to 8
-// mantissa bits), and the scalar head is reduced in registers as m2 leaves
-// the accumulators.
+// ---- The design -------------------------------------------------------------
+// Rows are whole tiles of edges. A block owns TI whole target nodes of one
+// graph with TI * N <= 128 rows (N = 32: 4 nodes; N = 40: 3 nodes, 120 rows;
+// 64 < N <= 128: one node), as two 64-row wgmma m-tiles, one per consumer
+// warpgroup. Whole nodes keep the gated j-sum inside the block: no atomics.
+// Blocks are persistent: a grid of at most one block per SM walks the tiles,
+// and the W1 stream runs on across tiles.
 //
-// H is zero-padded to HP (a multiple of 64) inside the kernel: padded units
-// see zero weights and a zero bias, stay at SiLU(0) = 0, and carry zero head
-// weight, so the padding is exact. Rows j >= N of the last 16-row tile are
-// computed and ignored. H must be a multiple of 4 and u, v, b0, b1, wh, w1
-// 8-byte aligned (whole 8-byte chunks and element pairs).
+// m1 (A) lives in shared memory, 128 x 448 bf16, in the layout wgmma reads:
+// K-tiles of 64 columns, rows of 128 bytes, 16-byte chunks XOR-swizzled with
+// the row (the 128-byte swizzle). Shared memory and not registers, because A
+// in registers (112 a thread) beside 112 accumulators and 56 registers of
+// packed m2 does not fit a thread's 232, and because the threads that build
+// m1 then write plain 16-byte chunks instead of the A-fragment layout. The
+// threads that build it own a chunk of columns each and share a source node's v
+// row between the tile's target nodes (see build_m1).
+//
+// W1 is packed once per weight by the wrapper (ops/gcl_kernel.py::pack_w1):
+// zero-padded to 448 output rows x HP input columns (HP = 64 ceil(H / 64)) and
+// cut into tiles of 224 output rows x 64 input columns, each tile one
+// contiguous 28,672-byte block already in the swizzled layout. One producer
+// thread streams the tiles through a ring of three slots with one
+// cp.async.bulk per tile, completing on an mbarrier; consumers wait on that
+// barrier and release the slot on another. No thread computes a W1 address.
+// The producer sits in a third warpgroup, which exists so that setmaxnreg
+// can move its registers to the consumers. Both consumer warpgroups read the
+// same tile, so W1 crosses from L2 once per 128 rows. L2 does not bound the
+// product (measured: with every tile copied twice its phases take 7% more
+// clocks at most), so there is no cluster and no multicast.
+//
+// The output columns are walked in two halves of 224 (wgmma m64n224k16, 112
+// f32 accumulators a thread). After each half the accumulators pass through
+// bias, SiLU and the head's partial dot product in registers: a thread owns
+// two whole rows of its half, so the head needs two shuffles and no shared
+// memory. In gcl mode the first half's m2 waits in 56 registers (packed
+// bf16); when the second half is done the gate is known, and the gated m2 is
+// written over the warpgroup's own rows of m1 (dead by then), from where the
+// masked j-sum reads it. coord mode stores the head and no m2. The f32 order
+// of the head's sum differs from the plain version's; the tolerances in
+// chip_smoke.py (bf16 gcl 5e-3 + 1e-2 |ref|, coord 5e-2 + 5e-2 |ref|) allow it.
+//
+// SiLU is x/2 (1 + tanh(x/2)) with tanh.approx: one special-function
+// operation instead of two, and the same errors against the plain version
+// as exp and divide gave (the result is rounded to bf16 right after).
+//
+// The phases of a tile (build m1, product, epilogue, product, epilogue, gate
+// and store, j-sum) run one after the other: the elementwise work does not
+// overlap the product. Because both warpgroups read the same W1 tile they
+// are in the product at the same time, and a warpgroup has no registers for
+// a second set of accumulators. Letting them alternate (each with its own
+// pass over W1, which L2 would bear) is open; it needs the m1 build and the
+// j-sum per warpgroup and a hand-over for nodes that span both. Two warps a
+// scheduler hide little latency, so the code is kept small enough for the
+// instruction cache: the m1 build is a rolled loop. In gcl mode the
+// accumulators and the first half's m2 leave too few registers for ptxas to
+// pipeline the wgmmas (its note C7511, and 56 bytes of spills): the gcl
+// product takes about 15% more clocks than coord's.
+//
+// Padding is exact: padded hidden units see zero weights and a zero bias,
+// stay at SiLU(0) = 0 and carry zero head weight. Rows past the last edge of
+// a tile are built as zeros and written nowhere.
+//
+// The float32 kernel (off the main path, plain FMA) is edge_mlp_f32.cu.
 //
 // Interface: a plain C function (mlcg_edge_mlp) that launches on the given
-// stream and returns cudaGetLastError().
+// stream, allocates nothing, does not synchronise and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,446 +91,578 @@
 
 namespace {
 
-constexpr int kSubThreads = 256;   // threads per target node
-constexpr int kWarps = kSubThreads / 32;
-constexpr int kKT = 16;            // K-tile of W1
-constexpr int kStages = 3;         // cp.async ring depth
-constexpr int kMaxNTW = 7;         // n-tiles of 8 per warp: HP <= 448
-constexpr int kMaxE = 4;           // edge scalars held in registers
-constexpr int kMaxMT = 3;          // 16-row tiles of source nodes: N <= 48
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxE = 4;           // edge scalars per edge
+constexpr int kMaxHidden = 448;    // HP <= 448
 constexpr int kMaxDevices = 64;    // devices whose attributes are cached
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kRows = 128;                 // edge rows per block tile
+constexpr int kNP = kMaxHidden;            // padded output width
+constexpr int kNH = kNP / 2;               // columns per wgmma (one half)
+constexpr int kNT = kNH / 8;               // 8-column accumulator tiles per half
+constexpr int kKTileBytes = kRows * 128;   // one K-tile of m1: 128 rows x 64 bf16
+constexpr int kABytes = (kNP / 64) * kKTileBytes;
+constexpr int kWTileBytes = kNH * 128;     // one packed W1 tile: 224 rows x 64 bf16
+constexpr int kRing = 3;                   // W1 ring slots
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kBf16Threads = kConsumers + 128;  // plus the producer's warpgroup
+constexpr int kM1Threads = (kNP / 8) * 4;   // threads that build m1: 56 chunks x 4 row groups
+constexpr int kProfSlots = 8;              // clock slots per block (profiling)
+
+// Shared memory of the bf16 kernel, from a 1024-byte aligned base.
+constexpr int kOffRing = kABytes;
+constexpr int kOffB1 = kOffRing + kRing * kWTileBytes;      // f32[kNP]
+constexpr int kOffWh = kOffB1 + kNP * 4;                    // f32[kNP]
+constexpr int kOffB0 = kOffWh + kNP * 4;                    // f32[kNP]
+constexpr int kOffWe = kOffB0 + kNP * 4;                    // f32[kMaxE][kNP]
+constexpr int kOffEm = kOffWe + kMaxE * kNP * 4;            // f32[kRows]
+constexpr int kOffEf = kOffEm + kRows * 4;                  // f32[kRows][kMaxE]
+constexpr int kOffBar = kOffEf + kRows * kMaxE * 4;         // 2 * kRing mbarriers
+constexpr int kBf16Smem = kOffBar + 2 * kRing * 8 + 1024;   // + alignment slack
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ float bf_lo(uint32_t p) { return __uint_as_float(p << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 0xffff0000u); }
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // a in the low half
+  return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// SiLU for a value that is rounded to bf16 right after, as
+// x/2 (1 + tanh(x/2)): one special-function operation (tanh.approx, relative
+// error about 2^-11, a quarter of a bf16 ulp) instead of an exp and a divide.
+__device__ __forceinline__ float silu_fast(float x) {
+  const float h = 0.5f * x;
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
 }
 
-// Round an f32 value to the operand type and back.
-template <typename T> __device__ __forceinline__ float rnd(float x) {
-  return to_f<T>(from_f<T>(x));
+// round_bf16(SiLU(round_bf16(.))) of two values, packed.
+__device__ __forceinline__ uint32_t act2(float a, float b) {
+  const uint32_t p = pack2(a, b);
+  return pack2(silu_fast(bf_lo(p)), silu_fast(bf_hi(p)));
 }
 
-// SiLU, x / (1 + exp(-x)). f32: full-precision exp and division. bf16: the
-// result is rounded to bf16, so the hardware exp and divide (a few f32 ulp)
-// are exact enough; the clamp keeps 1 + exp(-x) inside __fdividef's range
-// (silu(-80) is -1.4e-33 either way).
-template <typename T> __device__ __forceinline__ float silu(float x);
-template <> __device__ __forceinline__ float silu<float>(float x) {
-  return x / (1.0f + expf(-x));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
-template <> __device__ __forceinline__ float silu<__nv_bfloat16>(float x) {
-  return __fdividef(x, 1.0f + __expf(fminf(-x, 80.0f)));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
-
-// Two adjacent elements (p 8-byte aligned for f32, 4-byte for bf16).
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+// Wait until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
 }
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  p[0] = a;   // f32 tile rows are odd-length: no paired store
-  p[1] = b;
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// Row paddings (in elements) of the shared tiles. m1/m2 rows: bf16 +8 keeps
-// the mma fragment reads conflict-free, f32 +1 the FMA reads. W1 tile rows
-// (kKT + ldb elements) stay 8-byte aligned for cp.async.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int ldm = 1, ldb = 2; };
-template <> struct Pad<__nv_bfloat16> { static constexpr int ldm = 8, ldb = 8; };
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 8 : 0;   // 0 source bytes: the 8 bytes are zero-filled
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(d), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// One contiguous block from device memory into shared memory; completion is
+// counted in bytes on the mbarrier. All addresses and the size are multiples
+// of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
-template <typename T> __host__ __device__ constexpr int ldm_of(int HP) {
-  return HP + Pad<T>::ldm;
+// wgmma shared-memory descriptor: K-major operand, 128-byte swizzle, rows of
+// 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
 }
-template <typename T> __host__ __device__ constexpr int ldb_of() {
-  return kKT + Pad<T>::ldb;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// MT: number of 16-row tiles covering the N source nodes (MP = 16 * MT).
-// NODES: target nodes per block, each served by its own 256 threads and m1/m2
-// tile, all sharing one W1 ring (so W1 crosses from L2 once per NODES nodes).
-template <typename T, bool GCL, int MT, int NODES>
-__global__ void __launch_bounds__(kSubThreads * NODES, 1)
-edge_mlp_kernel(int BN, int N, int H, int E, int HP,
-                const T* __restrict__ u, const T* __restrict__ v,
-                const T* __restrict__ ef, const T* __restrict__ em,
-                const T* __restrict__ w_e, int ld_we,
-                const T* __restrict__ b0, const T* __restrict__ w1,
-                const T* __restrict__ b1, const T* __restrict__ wh,
-                const T* __restrict__ bh, float norm, float* __restrict__ out) {
-  constexpr int MP = 16 * MT;
-  constexpr int LDB = ldb_of<T>();
-  constexpr int CE = 8 / sizeof(T);        // elements per 8-byte chunk
-  constexpr int CPR = kKT / CE;            // chunks per W1 tile row
-  const int LDM = ldm_of<T>(HP);
-  const int ntw = HP / 64;
+#define MLCG_R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define MLCG_R16(i) MLCG_R4(i), MLCG_R4(i + 4), MLCG_R4(i + 8), MLCG_R4(i + 12)
+
+// d (64 x 224, f32) = a (64 x 16) . b^T (224 x 16) [+ d if accumulate].
+// Thread (warp w, lane 4 g + t) holds rows 16 w + g (d[4 n], d[4 n + 1]) and
+// 16 w + g + 8 (d[4 n + 2], d[4 n + 3]) at columns 8 n + 2 t, 8 n + 2 t + 1.
+__device__ __forceinline__ void wgmma_m64n224k16(float (&d)[4 * kNT], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103,"
+      " %104, %105, %106, %107, %108, %109, %110, %111},"
+      " %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : MLCG_R16(0), MLCG_R16(16), MLCG_R16(32), MLCG_R16(48), MLCG_R16(64),
+        MLCG_R16(80), MLCG_R16(96)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// One pass of build_m1 over the source nodes, for the NB target nodes from
+// node0 + t0: no branch inside, so that the nodes' arithmetic interleaves.
+template <int EE, int NB>
+__device__ __forceinline__ void build_m1_pass(
+    unsigned char* dst, int cc, const float (&bb)[8], const float (&we)[EE][8],
+    const float* ef_s, const bf16* __restrict__ u_c, const bf16* __restrict__ v_c,
+    bool hi_ok, int jg, int N, int H, int t0) {
+  const uint2 zero2 = make_uint2(0u, 0u);
+  float ub[NB][8];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const bf16* up = u_c + (size_t)(t0 + n) * H;
+    const uint2 ul = *reinterpret_cast<const uint2*>(up);
+    const uint2 uh = hi_ok ? *reinterpret_cast<const uint2*>(up + 4) : zero2;
+    ub[n][0] = bb[0] + bf_lo(ul.x);
+    ub[n][1] = bb[1] + bf_hi(ul.x);
+    ub[n][2] = bb[2] + bf_lo(ul.y);
+    ub[n][3] = bb[3] + bf_hi(ul.y);
+    ub[n][4] = bb[4] + bf_lo(uh.x);
+    ub[n][5] = bb[5] + bf_hi(uh.x);
+    ub[n][6] = bb[6] + bf_lo(uh.y);
+    ub[n][7] = bb[7] + bf_hi(uh.y);
+  }
+  uint2 vl = zero2, vh = zero2, vl_next, vh_next;
+  if (jg < N) {
+    vl = *reinterpret_cast<const uint2*>(v_c + (size_t)jg * H);
+    if (hi_ok) vh = *reinterpret_cast<const uint2*>(v_c + (size_t)jg * H + 4);
+  }
+  // Not unrolled: the kernel's code has to stay inside the instruction
+  // cache, and the register copy at the end is cheap.
+#pragma unroll 1
+  for (int j = jg; j < N; j += 4) {
+    const bf16* vp = v_c + (size_t)min(j + 4, N - 1) * H;   // the last one is unused
+    vl_next = *reinterpret_cast<const uint2*>(vp);
+    vh_next = hi_ok ? *reinterpret_cast<const uint2*>(vp + 4) : zero2;
+    const float vf[8] = {bf_lo(vl.x), bf_hi(vl.x), bf_lo(vl.y), bf_hi(vl.y),
+                         bf_lo(vh.x), bf_hi(vh.x), bf_lo(vh.y), bf_hi(vh.y)};
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      const int r = (t0 + n) * N + j;
+      const float4 f = *reinterpret_cast<const float4*>(ef_s + r * kMaxE);
+      const float fq[kMaxE] = {f.x, f.y, f.z, f.w};
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = ub[n][e] + vf[e];
+#pragma unroll
+      for (int q = 0; q < EE; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) x[e] = fmaf(fq[q], we[q][e], x[e]);
+      *reinterpret_cast<uint4*>(dst + r * 128 + ((cc ^ (r & 7)) << 4)) =
+          make_uint4(act2(x[0], x[1]), act2(x[2], x[3]), act2(x[4], x[5]), act2(x[6], x[7]));
+    }
+    vl = vl_next;
+    vh = vh_next;
+  }
+}
+
+// m1 = SiLU(u_i + v_j + e_ij . W_e + b0) of one tile, into A: row ti * N + j
+// for the tile's target nodes node0 + ti (ti < nodes) and the graph's source
+// nodes j < N. A thread owns one 16-byte chunk of columns (8 of them) and
+// every fourth source node. It loads v_j once for up to four target nodes,
+// whose u_i + b0 it holds in registers, and starts the next j's loads before
+// this j's arithmetic. EE: edge scalars computed (those past E are zeros);
+// b0f, wef (by scalar, then column) and ef_s (by row, kMaxE a row) are the
+// staged f32 copies in shared memory.
+template <int EE>
+__device__ __forceinline__ void build_m1(
+    unsigned char* A, const float* b0f, const float* wef, const float* ef_s,
+    const bf16* __restrict__ u, const bf16* __restrict__ v, int tid, int N,
+    int H, int b, int node0, int nodes, int nrows) {
+  const int c = tid % (kNP / 8), jg = tid / (kNP / 8);
+  const int k0 = c * 8;
+  const bool lo_ok = k0 < H, hi_ok = k0 + 4 < H;   // H is a multiple of 4
+  unsigned char* dst = A + (c >> 3) * kKTileBytes;
+  const int cc = c & 7;
+  // Rows past the tile's last edge, and padded columns, are zeros.
+  for (int r = (lo_ok ? nrows : 0) + jg; r < kRows; r += 4)
+    *reinterpret_cast<uint4*>(dst + r * 128 + ((cc ^ (r & 7)) << 4)) =
+        make_uint4(0u, 0u, 0u, 0u);
+  if (!lo_ok) return;
+  float bb[8], we[EE][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    bb[i] = b0f[k0 + i];
+#pragma unroll
+    for (int q = 0; q < EE; ++q) we[q][i] = wef[q * kNP + k0 + i];
+  }
+  const bf16* u_c = u + (size_t)node0 * H + k0;
+  const bf16* v_c = v + (size_t)b * N * H + k0;
+  int t0 = 0;
+  for (; t0 + 4 <= nodes; t0 += 4)
+    build_m1_pass<EE, 4>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0);
+  switch (nodes - t0) {
+    case 3: build_m1_pass<EE, 3>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    case 2: build_m1_pass<EE, 2>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    case 1: build_m1_pass<EE, 1>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    default: break;
+  }
+}
+
+// TI: whole target nodes per 128-row tile. tpg: tiles per graph; a tile
+// holds nodes of one graph. nkt: K-tiles of W1 (HP / 64).
+// w1p: the packed W1, 2 * nkt tiles of kWTileBytes. prof: null, or
+// kProfSlots clock sums per block (see mlcg_edge_mlp).
+template <bool GCL>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
+                     const bf16* __restrict__ u, const bf16* __restrict__ v,
+                     const bf16* __restrict__ ef, const bf16* __restrict__ em,
+                     const bf16* __restrict__ w_e, int ld_we,
+                     const bf16* __restrict__ b0, const bf16* __restrict__ w1p,
+                     const bf16* __restrict__ b1, const bf16* __restrict__ wh,
+                     const bf16* __restrict__ bh, float norm,
+                     float* __restrict__ out, long long* __restrict__ prof) {
+  extern __shared__ unsigned char smem_raw[];
+  // 1024-byte aligned (the swizzle is a function of the address); the offset
+  // is added to the array itself so that accesses stay ld/st.shared.
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* A = smem;
+  float* b1f = reinterpret_cast<float*>(smem + kOffB1);
+  float* whf = reinterpret_cast<float*>(smem + kOffWh);
+  float* b0f = reinterpret_cast<float*>(smem + kOffB0);
+  float* wef = reinterpret_cast<float*>(smem + kOffWe);
+  float* em_s = reinterpret_cast<float*>(smem + kOffEm);
+  float* ef_s = reinterpret_cast<float*>(smem + kOffEf);
+  const uint32_t ring = smem_u32(smem + kOffRing);
+  const uint32_t full = smem_u32(smem + kOffBar);        // kRing barriers
+  const uint32_t empty = full + kRing * 8;               // kRing barriers
 
   const int tid = threadIdx.x;
-  const int sub = tid / kSubThreads;  // which target node of the block
-  const int stid = tid - sub * kSubThreads;
-  const int node = blockIdx.x * NODES + sub;
-  const bool live = node < BN;        // an idle half recomputes the last node
-  const int bi = live ? node : BN - 1;  // b * N + i
-  const int b = bi / N;
+  const int warp = tid >> 5, lane = tid & 31;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t m_bytes = ((size_t)MP * LDM * sizeof(T) + 15) & ~(size_t)15;
-  T* M = reinterpret_cast<T*>(smem + sub * m_bytes);          // MP x LDM
-  size_t off = NODES * m_bytes;
-  T* Bs = reinterpret_cast<T*>(smem + off);                   // kStages x HP x LDB
-  off += ((size_t)kStages * HP * LDB * sizeof(T) + 15) & ~(size_t)15;
-  float* gate_s = reinterpret_cast<float*>(smem + off) + sub * (2 + kWarps) * MP;
-  float* em_s = gate_s + MP;                                  // MP
-  float* hpart = em_s + MP;                                   // kWarps x MP
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      mbar_init(full + 8 * s, 1);                  // the producer's expect_tx
+      mbar_init(empty + 8 * s, kConsumers / 32);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int c = tid; c < kNP; c += kBf16Threads) {
+    b1f[c] = c < H ? __bfloat162float(b1[c]) : 0.0f;
+    whf[c] = c < H ? __bfloat162float(wh[c]) : 0.0f;
+    b0f[c] = c < H ? __bfloat162float(b0[c]) : 0.0f;
+    for (int q = 0; q < kMaxE; ++q)
+      wef[q * kNP + c] = (c < H && q < E)
+          ? __bfloat162float(w_e[(size_t)c * ld_we + q]) : 0.0f;
+  }
+  __syncthreads();
 
-  const T* u_i = u + (size_t)bi * H;
-  const T* ef_i = ef + (size_t)bi * N * E;
-  const int nkt = HP / kKT;
+  const int my_tiles = (ntiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 
-  // Stage tile kt of W1 (rows n < HP, columns kt*kKT ..) into ring slot s.
-  auto load_tile = [&](int s, int kt) {
-    T* dst = Bs + (size_t)s * HP * LDB;
-    const int k0 = kt * kKT;
-    for (int c = tid; c < HP * CPR; c += kSubThreads * NODES) {
-      const int n = c / CPR;
-      const int q = c - n * CPR;
-      const int k = k0 + q * CE;
-      const bool ok = n < H && k < H;
-      cp_async8(dst + n * LDB + q * CE, ok ? w1 + (size_t)n * H + k : w1, ok);
+  // Registers are handed out per warpgroup: three groups of 128 threads get
+  // 168 each at launch. The producer's group gives most of its share back,
+  // and the consumers take 232 (112 accumulators, 56 of packed m2).
+  if (warp >= kConsumers / 32) {
+    // ---- producer: keep the ring full of W1 tiles -------------------------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == kConsumers) {
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(w1p);
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = 0; t < my_tiles; ++t) {
+        for (int w = 0; w < 2 * nkt; ++w) {
+          mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
+          mbar_expect_tx(full + 8 * s, kWTileBytes);
+          bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes,
+                    kWTileBytes, full + 8 * s);
+          if (++s == kRing) { s = 0; ph ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: two warpgroups, 64 rows each ------------------------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + (warp & 3) * 16 + g;   // this thread's rows: r0, r0 + 8
+  const uint32_t a_base = smem_u32(A) + wg * (64 * 128);
+  const float bhv = bh ? __bfloat162float(bh[0]) : 0.0f;
+  const bool clk = prof != nullptr && tid == 0;
+  long long t_prev = 0;
+  auto lap = [&](int slot) {   // prof starts as zeros
+    if (clk) {
+      const long long now = clock64();
+      prof[(size_t)blockIdx.x * kProfSlots + slot] += now - t_prev;
+      t_prev = now;
     }
   };
 
-  // The first tiles load while m1 is built.
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nkt) load_tile(s, s);
-    cp_async_commit();
-  }
+  float acc[4 * kNT];
+  int slot = 0;
+  uint32_t phase = 0;
 
-  if (GCL) {
-    for (int j = stid; j < N; j += kSubThreads) em_s[j] = to_f<T>(em[(size_t)bi * N + j]);
-  }
-  if constexpr (sizeof(T) == 4) {
-    // f32 warps write the partial heads of their own rows only
-    for (int r = stid; r < kWarps * MP; r += kSubThreads) hpart[r] = 0.0f;
-  }
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int b = tile / tpg;                     // the tile's graph
+    const int i0 = (tile - b * tpg) * TI;         // its first target node
+    const int nodes = min(TI, N - i0);
+    const int node0 = b * N + i0;
+    const int nrows = nodes * N;                  // real rows of this tile
+    const size_t e0 = (size_t)node0 * N;          // first edge of this tile
+    if (clk) t_prev = clock64();
 
-  // 1. m1 = SiLU(u_i + v_j + e_ij . W_e + b0): each thread owns a column
-  //    pair (k, k+1), holds u_i, b0 and W_e there in registers and walks
-  //    the rows j.
-  for (int p = stid; p < HP / 2; p += kSubThreads) {
-    const int k = 2 * p;
-    const bool kin = k < H;           // H is even: then k + 1 < H too
-    float we0[kMaxE], we1[kMaxE];
-#pragma unroll
-    for (int q = 0; q < kMaxE; ++q) {
-      we0[q] = (kin && q < E) ? to_f<T>(w_e[(size_t)k * ld_we + q]) : 0.0f;
-      we1[q] = (kin && q < E) ? to_f<T>(w_e[(size_t)(k + 1) * ld_we + q]) : 0.0f;
+    // 0. The edge scalars and the edge mask of the tile's rows.
+    for (int i = tid; i < kRows * kMaxE; i += kConsumers) {
+      const int r = i / kMaxE, q = i - r * kMaxE;
+      ef_s[i] = (r < nrows && q < E) ? __bfloat162float(ef[(e0 + r) * E + q]) : 0.0f;
     }
-    const float2 uk = kin ? load2(u_i + k) : make_float2(0.0f, 0.0f);
-    const float2 bk = kin ? load2(b0 + k) : make_float2(0.0f, 0.0f);
-    const T* v_k = v + (size_t)b * N * H + k;
-#pragma unroll 4
-    for (int j = 0; j < MP; ++j) {
-      float m0 = 0.0f, m1 = 0.0f;
-      if (j < N && kin) {
-        const float2 vj = load2(v_k + (size_t)j * H);
-        float e0 = 0.0f, e1 = 0.0f;
+    if (GCL && tid < kRows)
+      em_s[tid] = tid < nrows ? __bfloat162float(em[e0 + tid]) : 0.0f;
+    named_barrier(1, kConsumers);
+
+    // 1. m1 (see build_m1).
+    if (tid < kM1Threads) {
+      if (E <= 2) {
+        build_m1<2>(A, b0f, wef, ef_s, u, v, tid, N, H, b, node0, nodes, nrows);
+      } else {
+        build_m1<kMaxE>(A, b0f, wef, ef_s, u, v, tid, N, H, b, node0, nodes, nrows);
+      }
+    }
+    // m1 was written by ordinary stores; wgmma reads it through the async proxy.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_barrier(1, kConsumers);
+    lap(0);
+
+    // 2. m1 . W1^T in two halves of 224 columns, each followed by its epilogue.
+    float hd0 = 0.0f, hd1 = 0.0f;     // partial heads of rows r0 and r0 + 8
 #pragma unroll
-        for (int q = 0; q < kMaxE; ++q) {
-          if (q < E) {
-            const float f = to_f<T>(ef_i[(size_t)j * E + q]);
-            e0 += f * we0[q];
-            e1 += f * we1[q];
+    for (int i = 0; i < 4 * kNT; ++i) acc[i] = 0.0f;   // dead while m1 is built
+    uint32_t m2p[2 * kNT];            // gcl: the first half's m2, packed
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int prev = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(full + 8 * slot, phase);
+        wgmma_fence();
+        const uint32_t a_kt = a_base + kt * kKTileBytes;
+        const uint32_t b_kt = ring + slot * kWTileBytes;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // 16 columns = 32 bytes inside the swizzled row
+          wgmma_m64n224k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
+                           (kt | kk) != 0);
+        wgmma_commit();
+        if (kt > 0) {
+          wgmma_wait<1>();               // the previous tile's products are done
+          if (lane == 0) mbar_arrive(empty + 8 * prev);
+        }
+        prev = slot;
+        if (++slot == kRing) { slot = 0; phase ^= 1; }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
+      lap(1 + 2 * h);
+
+      // m2 = SiLU(acc + b1) rounded, and its share of the head.
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int col = h * kNH + nt * 8 + 2 * t4;
+        const float2 bias = *reinterpret_cast<const float2*>(b1f + col);
+        const float2 w = *reinterpret_cast<const float2*>(whf + col);
+        const uint32_t p0 = act2(acc[4 * nt] + bias.x, acc[4 * nt + 1] + bias.y);
+        const uint32_t p1 = act2(acc[4 * nt + 2] + bias.x, acc[4 * nt + 3] + bias.y);
+        hd0 = fmaf(bf_lo(p0), w.x, fmaf(bf_hi(p0), w.y, hd0));
+        hd1 = fmaf(bf_lo(p1), w.x, fmaf(bf_hi(p1), w.y, hd1));
+        if (GCL) {
+          if (h == 0) {
+            m2p[2 * nt] = p0;
+            m2p[2 * nt + 1] = p1;
+          } else {
+            acc[4 * nt] = __uint_as_float(p0);   // kept as bits until the gate is known
+            acc[4 * nt + 2] = __uint_as_float(p1);
           }
         }
-        m0 = rnd<T>(silu<T>(rnd<T>(uk.x + vj.x + e0 + bk.x)));
-        m1 = rnd<T>(silu<T>(rnd<T>(uk.y + vj.y + e1 + bk.y)));
       }
-      store2(M + j * LDM + k, m0, m1);
+      lap(2 + 2 * h);
     }
-  }
 
-  // 2. m1 . W1^T with W1 (torch layout, [out][in]) streamed through the ring.
-  const int warp = stid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;          // mma fragment coordinates
-  const int tx = stid & 63, ty = stid >> 6;         // FMA thread coordinates
-  float acc[4 * MT][kMaxNTW];   // bf16: [mt][t][4] viewed flat; f32: [row][col]
-#pragma unroll
-  for (int r = 0; r < 4 * MT; ++r)
-#pragma unroll
-    for (int q = 0; q < kMaxNTW; ++q) acc[r][q] = 0.0f;
+    // 3. The head of each edge: the four lanes of a row hold its parts.
+    hd0 += __shfl_xor_sync(0xffffffffu, hd0, 1);
+    hd0 += __shfl_xor_sync(0xffffffffu, hd0, 2);
+    hd1 += __shfl_xor_sync(0xffffffffu, hd1, 1);
+    hd1 += __shfl_xor_sync(0xffffffffu, hd1, 2);
+    hd0 += bhv;
+    hd1 += bhv;
 
-  for (int kt = 0; kt < nkt; ++kt) {
-    // Keep kStages - 1 tiles in flight: issue tile kt + kStages - 1 into the
-    // slot that the previous iteration finished with, then wait for tile kt.
-    const int nt = kt + kStages - 1;
-    if (nt < nkt) load_tile(nt % kStages, nt);
-    cp_async_commit();
-    cp_async_wait<kStages - 1>();
-    __syncthreads();   // tile kt (and, at kt = 0, all of m1) is visible
-    const T* Bt = Bs + (size_t)(kt % kStages) * HP * LDB;
-    const int k0 = kt * kKT;
-
-    if constexpr (sizeof(T) == 2) {
-      // warp owns columns [warp * 8 * ntw, (warp + 1) * 8 * ntw)
-      const int nb = warp * 8 * ntw;
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const T* base = M + (mt * 16 + g) * LDM + k0 + tig * 2;
-        a[mt][0] = *reinterpret_cast<const uint32_t*>(base);
-        a[mt][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDM);
-        a[mt][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-        a[mt][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDM + 8);
-      }
-#pragma unroll
-      for (int t = 0; t < kMaxNTW; ++t) {
-        if (t < ntw) {
-          const T* bb = Bt + (nb + t * 8 + g) * LDB + tig * 2;
-          const uint32_t bf0 = *reinterpret_cast<const uint32_t*>(bb);
-          const uint32_t bf1 = *reinterpret_cast<const uint32_t*>(bb + 8);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            // the 4 accumulators of tile (mt, t) live at acc[4*mt .. 4*mt+3][t]
-            float c[4] = {acc[4 * mt][t], acc[4 * mt + 1][t],
-                          acc[4 * mt + 2][t], acc[4 * mt + 3][t]};
-            mma_bf16(c, a[mt], bf0, bf1);
-            acc[4 * mt][t] = c[0];
-            acc[4 * mt + 1][t] = c[1];
-            acc[4 * mt + 2][t] = c[2];
-            acc[4 * mt + 3][t] = c[3];
-          }
-        }
+    if (!GCL) {
+      if (t4 == 0) {
+        if (r0 < nrows) out[e0 + r0] = hd0;
+        if (r0 + 8 < nrows) out[e0 + r0 + 8] = hd1;
       }
     } else {
-      // thread owns rows ty + 4 r (r < 4 MT) and columns tx + 64 q (q < ntw)
+      // 4. The gated m2 goes over this warpgroup's rows of m1, which every
+      //    warp of the group has finished reading.
+      const float g0 = bf_lo(pack2(1.0f / (1.0f + expf(-hd0)), 0.0f));
+      const float g1 = bf_lo(pack2(1.0f / (1.0f + expf(-hd1)), 0.0f));
+      named_barrier(2 + wg, 128);
+      unsigned char* row0 = A + r0 * 128 + t4 * 4;   // row r0 + 8 is 1024 bytes on
+      const int swz = r0 & 7;                        // the same for r0 + 8
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const int cg = h * kNT + nt;               // 8-column group of the row
+          unsigned char* dst = row0 + (cg >> 3) * kKTileBytes + (((cg & 7) ^ swz) << 4);
+          const uint32_t p0 = h == 0 ? m2p[2 * nt] : __float_as_uint(acc[4 * nt]);
+          const uint32_t p1 = h == 0 ? m2p[2 * nt + 1] : __float_as_uint(acc[4 * nt + 2]);
+          *reinterpret_cast<uint32_t*>(dst) = pack2(bf_lo(p0) * g0, bf_hi(p0) * g0);
+          *reinterpret_cast<uint32_t*>(dst + 1024) = pack2(bf_lo(p1) * g1, bf_hi(p1) * g1);
+        }
+      }
+      named_barrier(1, kConsumers);
+      lap(5);
+
+      // 5. Masked j-sum in f32: a thread owns a 16-byte chunk (8 columns) of
+      //    one node and walks its rows.
+      for (int item = tid; item < nodes * (kNP / 8); item += kConsumers) {
+        const int ti = item / (kNP / 8);
+        const int c = item - ti * (kNP / 8);
+        const int k0 = c * 8;
+        if (k0 < H) {
+          const unsigned char* src = A + (c >> 3) * kKTileBytes;
+          const int cc = c & 7;
+          float sum[8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) sum[i] = 0.0f;
 #pragma unroll 4
-      for (int kk = 0; kk < kKT; ++kk) {
-        float bv[kMaxNTW];
-#pragma unroll
-        for (int q = 0; q < kMaxNTW; ++q)
-          bv[q] = (q < ntw) ? to_f<T>(Bt[(tx + 64 * q) * LDB + kk]) : 0.0f;
-#pragma unroll
-        for (int r = 0; r < 4 * MT; ++r) {
-          const float a = to_f<T>(M[(ty + 4 * r) * LDM + k0 + kk]);
-#pragma unroll
-          for (int q = 0; q < kMaxNTW; ++q)
-            if (q < ntw) acc[r][q] = fmaf(a, bv[q], acc[r][q]);
-        }
-      }
-    }
-    __syncthreads();   // slot kt % kStages is free for the load of tile kt + kStages
-  }
-  cp_async_wait<0>();
-
-  // 3. m2 = SiLU(acc + b1) rounded to T, stored over m1 for the j-sum (every
-  //    read of m1 is done: the loop ends with a barrier), and its scalar
-  //    head m2 . wh reduced on the way: per thread over its columns, across
-  //    the lanes sharing a row, then per warp into hpart[warp][row].
-  if constexpr (sizeof(T) == 2) {
-    const int nb = warp * 8 * ntw;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int r = mt * 16 + g + 8 * h2;
-        float part = 0.0f;
-#pragma unroll
-        for (int t = 0; t < kMaxNTW; ++t) {
-          if (t < ntw) {
-            const int c = nb + t * 8 + tig * 2;
-            float2 bias = make_float2(0.0f, 0.0f), w = make_float2(0.0f, 0.0f);
-            if (c < H) {
-              bias = load2(b1 + c);
-              w = load2(wh + c);
-            }
-            const float x0 = rnd<T>(silu<T>(rnd<T>(acc[4 * mt + 2 * h2][t] + bias.x)));
-            const float x1 = rnd<T>(silu<T>(rnd<T>(acc[4 * mt + 2 * h2 + 1][t] + bias.y)));
-            if (GCL) store2(M + r * LDM + c, x0, x1);
-            part += x0 * w.x + x1 * w.y;
+          for (int j = 0; j < N; ++j) {
+            const int r = ti * N + j;
+            const uint4 p = *reinterpret_cast<const uint4*>(
+                src + r * 128 + ((cc ^ (r & 7)) << 4));
+            const float m = em_s[r];
+            sum[0] = fmaf(bf_lo(p.x), m, sum[0]);
+            sum[1] = fmaf(bf_hi(p.x), m, sum[1]);
+            sum[2] = fmaf(bf_lo(p.y), m, sum[2]);
+            sum[3] = fmaf(bf_hi(p.y), m, sum[3]);
+            sum[4] = fmaf(bf_lo(p.z), m, sum[4]);
+            sum[5] = fmaf(bf_hi(p.z), m, sum[5]);
+            sum[6] = fmaf(bf_lo(p.w), m, sum[6]);
+            sum[7] = fmaf(bf_hi(p.w), m, sum[7]);
           }
-        }
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        part += __shfl_xor_sync(0xffffffffu, part, 2);
-        if (tig == 0) hpart[warp * MP + r] = part;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int r = 0; r < 4 * MT; ++r) {
-      float part = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kMaxNTW; ++q) {
-        if (q < ntw) {
-          const int c = tx + 64 * q;
-          const bool cin = c < H;
-          const float x = rnd<T>(silu<T>(rnd<T>(acc[r][q] + (cin ? to_f<T>(b1[c]) : 0.0f))));
-          if (GCL) M[(ty + 4 * r) * LDM + c] = from_f<T>(x);
-          part += x * (cin ? to_f<T>(wh[c]) : 0.0f);
+          // H is a multiple of 4: a chunk holds 8 or 4 real columns; rows of
+          // out are 16-byte aligned.
+          float* o = out + (size_t)(node0 + ti) * H + k0;
+          *reinterpret_cast<float4*>(o) =
+              make_float4(sum[0] / norm, sum[1] / norm, sum[2] / norm, sum[3] / norm);
+          if (k0 + 4 < H)
+            *reinterpret_cast<float4*>(o + 4) =
+                make_float4(sum[4] / norm, sum[5] / norm, sum[6] / norm, sum[7] / norm);
         }
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (lane == 0) hpart[warp * MP + ty + 4 * r] = part;   // a warp holds one ty
     }
-  }
-  __syncthreads();
-
-  // 4. The head of each edge: the gate (gcl) or the output (coord).
-  const float bhv = bh ? to_f<T>(bh[0]) : 0.0f;
-  for (int j = stid; j < N; j += kSubThreads) {
-    float head = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) head += hpart[w * MP + j];
-    head += bhv;
-    if (GCL) {
-      gate_s[j] = rnd<T>(1.0f / (1.0f + expf(-head)));
-    } else if (live) {
-      out[(size_t)bi * N + j] = head;
-    }
-  }
-  if (!GCL) return;
-  __syncthreads();
-
-  // 5. Gated, masked j-sum in f32.
-  if (!live) return;
-  for (int n = stid; n < H; n += kSubThreads) {
-    float s = 0.0f;
-    for (int j = 0; j < N; ++j)
-      s += rnd<T>(to_f<T>(M[j * LDM + n]) * gate_s[j]) * em_s[j];
-    out[(size_t)bi * H + n] = s / norm;
+    // The next tile rewrites m1 and the mask.
+    named_barrier(1, kConsumers);
+    lap(6);
   }
 }
 
-template <typename T, int MT, int NODES>
-size_t smem_bytes(int HP) {
-  size_t off = NODES * (((size_t)16 * MT * ldm_of<T>(HP) * sizeof(T) + 15) & ~(size_t)15);
-  off += ((size_t)kStages * HP * ldb_of<T>() * sizeof(T) + 15) & ~(size_t)15;
-  return off + NODES * (2 + kWarps) * 16 * MT * sizeof(float);
-}
+#undef MLCG_R4
+#undef MLCG_R16
 
-// bf16 serves two target nodes per block (~150 KB of shared memory, one
-// block of 16 warps per SM); f32 one node per block.
-template <typename T, bool GCL, int MT>
-cudaError_t launch(int B, int N, int H, int E, const void* u, const void* v,
-                   const void* ef, const void* em, const void* w_e, int ld_we,
-                   const void* b0, const void* w1, const void* b1,
-                   const void* wh, const void* bh, float norm, float* out,
-                   cudaStream_t stream) {
-  constexpr int NODES = sizeof(T) == 2 ? 2 : 1;
-  const int HP = ((H + 63) / 64) * 64;
-  const int BN = B * N;
-  const size_t smem = smem_bytes<T, MT, NODES>(HP);
-  auto kern = edge_mlp_kernel<T, GCL, MT, NODES>;
-  // The shared-memory limit is set once per device, to what the widest
-  // hidden size needs; a launch then only checks a flag.
-  static bool ready[kMaxDevices] = {};
+template <bool GCL>
+cudaError_t launch_bf16(int B, int N, int H, int E, const void* u, const void* v,
+                        const void* ef, const void* em, const void* w_e, int ld_we,
+                        const void* b0, const void* w1p, const void* b1,
+                        const void* wh, const void* bh, float norm, float* out,
+                        long long* prof, cudaStream_t stream) {
+  auto kern = edge_mlp_bf16_kernel<GCL>;
+  // The shared-memory limit and the SM count are read once per device.
+  static int sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices || !ready[dev]) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes<T, MT, NODES>(64 * kMaxNTW));
+  int n_sm = dev < kMaxDevices ? sms[dev] : 0;
+  if (n_sm == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBf16Smem);
     if (err != cudaSuccess) return err;
-    if (dev < kMaxDevices) ready[dev] = true;
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices) sms[dev] = n_sm;
   }
-  kern<<<(BN + NODES - 1) / NODES, kSubThreads * NODES, smem, stream>>>(
-      BN, N, H, E, HP, (const T*)u, (const T*)v, (const T*)ef, (const T*)em,
-      (const T*)w_e, ld_we, (const T*)b0, (const T*)w1, (const T*)b1,
-      (const T*)wh, (const T*)bh, norm, out);
+  const int TI = N <= kRows / 2 ? kRows / N : 1;
+  const int tpg = (N + TI - 1) / TI;
+  const int ntiles = B * tpg;
+  const int nkt = (H + 63) / 64;
+  kern<<<ntiles < n_sm ? ntiles : n_sm, kBf16Threads, kBf16Smem, stream>>>(
+      N, H, E, nkt, TI, tpg, ntiles, (const bf16*)u, (const bf16*)v, (const bf16*)ef,
+      (const bf16*)em, (const bf16*)w_e, ld_we, (const bf16*)b0, (const bf16*)w1p,
+      (const bf16*)b1, (const bf16*)wh, (const bf16*)bh, norm, out, prof);
   return cudaGetLastError();
 }
 
-template <typename T, bool GCL>
-cudaError_t dispatch_mt(int B, int N, int H, int E, const void* u,
-                        const void* v, const void* ef, const void* em,
-                        const void* w_e, int ld_we, const void* b0,
-                        const void* w1, const void* b1, const void* wh,
-                        const void* bh, float norm, float* out,
-                        cudaStream_t s) {
-  switch ((N + 15) / 16) {
-    case 1: return launch<T, GCL, 1>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, out, s);
-    case 2: return launch<T, GCL, 2>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, out, s);
-    case 3: return launch<T, GCL, 3>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, out, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-bool aligned8(const void* p) { return ((uintptr_t)p & 7) == 0; }
+bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
 
 }  // namespace
 
 extern "C" {
 
 // Largest sizes the kernel takes; the Python wrapper checks against these.
-int mlcg_edge_mlp_max_nodes() { return 16 * kMaxMT; }
-int mlcg_edge_mlp_max_hidden() { return 64 * kMaxNTW; }
+int mlcg_edge_mlp_max_nodes() { return kRows; }
+int mlcg_edge_mlp_max_hidden() { return kMaxHidden; }
 int mlcg_edge_mlp_max_edge_feats() { return kMaxE; }
+// Bytes of one packed W1 tile and clock slots per block of `prof`.
+int mlcg_edge_mlp_w1_tile_bytes() { return kWTileBytes; }
+int mlcg_edge_mlp_prof_slots() { return kProfSlots; }
 
-// dtype: 0 = float32, 1 = bfloat16. mode: 0 = gcl, 1 = coord.
+// mode: 0 = gcl, 1 = coord. All operands bfloat16.
 // u, v: (B, N, H); ef: (B, N*N, E); em: (B, N*N) (gcl only);
-// w_e: (H, E) with row stride ld_we; b0, b1, wh: (H,); w1: (H, H) [out][in];
-// bh: (1,) or null; u, v, b0, b1, wh, w1 8-byte aligned; H a multiple of 4.
+// w_e: (H, E) with row stride ld_we; b0, b1, wh: (H,); bh: (1,) or null;
+// u, v 8-byte aligned; H a multiple of 4, at most 448; N <= 128; E <= 4.
+// w1p: W1 in the packed form, 2 * ceil(H / 64) tiles of
+// mlcg_edge_mlp_w1_tile_bytes() bytes, 16-byte aligned (see pack_w1 in
+// ops/gcl_kernel.py).
 // out: float32, (B, N, H) for gcl, (B, N*N) for coord.
-int mlcg_edge_mlp(int dtype, int mode, int B, int N, int H, int E,
-                  const void* u, const void* v, const void* ef, const void* em,
-                  const void* w_e, int ld_we, const void* b0, const void* w1,
+// prof: null, or zeros, one block per SM times mlcg_edge_mlp_prof_slots()
+// int64, to which each block's first thread adds clocks: 0 build m1, 1 and 3
+// the product of half 0 and 1, 2 and 4 its epilogue, 5 gate and store,
+// 6 j-sum and the tile's last barrier.
+int mlcg_edge_mlp(int mode, int B, int N, int H, int E, const void* u,
+                  const void* v, const void* ef, const void* em,
+                  const void* w_e, int ld_we, const void* b0, const void* w1p,
                   const void* b1, const void* wh, const void* bh, float norm,
-                  void* out, void* stream) {
-  if (B <= 0 || N <= 0 || N > 16 * kMaxMT || H <= 0 || H > 64 * kMaxNTW || H % 4 != 0 ||
-      E < 0 || E > kMaxE || !aligned8(u) || !aligned8(v) || !aligned8(b0) ||
-      !aligned8(b1) || !aligned8(wh) || !aligned8(w1))
+                  void* out, void* prof, void* stream) {
+  if (B <= 0 || N <= 0 || N > kRows || H <= 0 || H > kMaxHidden || H % 4 != 0 ||
+      E < 0 || E > kMaxE || !aligned(u, 8) || !aligned(v, 8) || !aligned(w1p, 16))
     return (int)cudaErrorInvalidValue;
   if (mode == 0 && em == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* o = (float*)out;
-  cudaError_t err;
-  if (dtype == 1) {
-    err = mode == 0
-        ? dispatch_mt<__nv_bfloat16, true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, o, s)
-        : dispatch_mt<__nv_bfloat16, false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, o, s);
-  } else if (dtype == 0) {
-    err = mode == 0
-        ? dispatch_mt<float, true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, o, s)
-        : dispatch_mt<float, false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1, b1, wh, bh, norm, o, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  long long* p = (long long*)prof;
+  const cudaError_t err = mode == 0
+      ? launch_bf16<true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s)
+      : launch_bf16<false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s);
   return (int)err;
 }
 

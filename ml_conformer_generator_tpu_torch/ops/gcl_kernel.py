@@ -9,19 +9,25 @@ f32 j-sum ``out_i = sum_j m_ij gate_ij mask_ij / norm`` (B, N, H), mode
 
 What bounds it on an H100: the per-edge product with W1 (2 B N^2 H^2
 operations) against a few MB of per-node inputs, so tensor-core operations,
-not device memory. The kernel gives each (graph, target node) 256 threads
-(in bf16 two target nodes share a block and its W1 stream), keeps every
-per-edge tensor in shared memory and registers, streams W1 through a
-``cp.async`` ring of K-tiles (it does not fit beside m1 in a block's 227 KB),
-and uses ``mma.sync`` in bf16 (full-f32 FMA in f32). At H = 420 the two
-SiLUs per edge element cost as much as the product, so the bf16 path uses
-the hardware exp and divide. See the note at the top of the CUDA source.
+not device memory; the two SiLUs per edge element load the f32 and
+special-function units about as much. The bf16 kernel (the main path) gives
+a persistent block tiles of 128 edge rows, whole target nodes each, runs the
+product on ``wgmma`` with m1 in swizzled shared memory and f32 accumulators
+in registers, and has one producer warp stream W1 through a ring of shared
+memory slots with one bulk copy per tile, completing on an ``mbarrier``.
+For that, W1 is packed once per weight (:func:`pack_w1`, cached by
+:func:`packed_w1`) into the padded, tiled and swizzled form the kernel
+consumes. The head, the gate and the masked j-sum stay inside the block.
+bf16 takes N <= 128; the f32 kernel (plain FMA, one target node per block)
+takes N <= 64. See the note at the top of the CUDA source.
 
 Dispatch: a CPU tensor goes to :func:`fused_edge_pass_reference`; a CUDA
 tensor launches the kernel or raises. There is no fallback on the card.
 
-The kernel is built with ``nvcc`` at first use into ``build/kernels/`` at the
-repository root (a plain C interface, loaded with ``ctypes``).
+The two sources (``csrc/edge_mlp.cu`` for bfloat16, ``csrc/edge_mlp_f32.cu``
+for float32) are built with ``nvcc`` at first use, side by side, into
+``build/kernels/`` at the repository root (plain C interfaces, loaded with
+``ctypes``).
 """
 
 from __future__ import annotations
@@ -32,30 +38,104 @@ import os
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG_DIR, "csrc", "edge_mlp.cu")
+#: The kernel sources by library name: bfloat16 (the main path), float32.
+_SOURCES = {"edge_mlp": os.path.join(_PKG_DIR, "csrc", "edge_mlp.cu"),
+            "edge_mlp_f32": os.path.join(_PKG_DIR, "csrc", "edge_mlp_f32.cu")}
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 _MODES = {"gcl": 0, "coord": 1}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 #: Kernel launches per mode since import (or since the caller reset them).
 LAUNCHES: Dict[str, int] = {"gcl": 0, "coord": 0}
 
-_lib: Optional[ctypes.CDLL] = None
-#: (max nodes, max hidden, max edge scalars) the built kernel takes.
-_LIMITS = (0, 0, 0)
-#: Output of the last build: {"seconds": float, "log": str, "path": str}.
+#: Times W1 was packed since import (or since the caller reset it). A
+#: weight is packed once and then served from the cache.
+PACKS = 0
+
+#: Packed W1 layout (bf16), as ``csrc/edge_mlp.cu`` consumes it: output rows
+#: padded to _NP and cut in halves of _NH, input columns in K-tiles of _KT;
+#: a tile is _NH rows of 128 bytes whose 16-byte chunks are XOR-swizzled with
+#: the row.
+_NP, _NH, _KT = 448, 224, 64
+
+_libs: Optional[Dict[str, ctypes.CDLL]] = None
+#: (max nodes in f32, max nodes in bf16, max hidden, max edge scalars) the
+#: built kernel takes.
+_LIMITS = (0, 0, 0, 0)
+#: id(w1) -> (weak reference, the data that was packed, version, packed).
+_PACK_CACHE: Dict[int, Tuple[weakref.ref, torch.Tensor, int,
+                             torch.Tensor]] = {}
+#: Output of the last build: {"seconds": float, "log": str, "paths": dict}.
 BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def reset_pack_count() -> None:
+    global PACKS
+    PACKS = 0
+
+
+def _chunk_swizzle(device) -> torch.Tensor:
+    """(_NH, 8) index: position d of row r holds chunk d ^ (r % 8). The
+    permutation is its own inverse."""
+    rows = torch.arange(_NH, device=device)[:, None] % 8
+    return torch.arange(8, device=device)[None, :] ^ rows
+
+
+def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (H, H), torch layout [out][in], in the form the bf16 kernel reads.
+
+    Zero-padded to (_NP, HP) with HP = 64 ceil(H / 64), then laid out tile
+    by tile in the order the kernel consumes them: (half, K-tile, row,
+    swizzled chunk, 8 values), flat. Each tile is one contiguous block of
+    _NH x 128 bytes. Plain torch, on any device.
+    """
+    H = w1.shape[0]
+    if w1.shape != (H, H) or H > _NP:
+        raise ValueError(f"pack_w1 takes a square W1 of at most {_NP} rows, "
+                         f"got {tuple(w1.shape)}")
+    nkt = -(-H // _KT)
+    wp = w1.new_zeros(_NP, nkt * _KT)
+    wp[:H, :H] = w1
+    tiles = wp.view(2, _NH, nkt, 8, 8).permute(0, 2, 1, 3, 4)
+    idx = _chunk_swizzle(w1.device)[None, None, :, :, None].expand_as(tiles)
+    return torch.gather(tiles, 3, idx).contiguous().view(-1)
+
+
+def packed_w1(w1: torch.Tensor) -> torch.Tensor:
+    """The packed form of ``w1``, made once per weight.
+
+    The cache entry belongs to the tensor object and is valid while its data
+    pointer and version counter stand: an in-place update (an optimizer
+    step, ``load_state_dict``) or new storage (``.to()``) repacks. The entry
+    holds on to the storage it packed, so that new storage cannot come to
+    lie at the same address. The entry goes when the tensor does, so nothing
+    accumulates per call.
+    """
+    global PACKS
+    key = id(w1)
+    hit = _PACK_CACHE.get(key)
+    if (hit is not None and hit[0]() is w1
+            and hit[1].data_ptr() == w1.data_ptr()
+            and hit[2] == w1._version):
+        return hit[3]
+    source = w1.detach()
+    packed = pack_w1(source)
+    PACKS += 1
+    ref = weakref.ref(w1, lambda _, key=key: _PACK_CACHE.pop(key, None))
+    _PACK_CACHE[key] = (ref, source, w1._version, packed)
+    return packed
 
 
 def _nvcc() -> str:
@@ -66,54 +146,81 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
-def build_kernel(verbose: bool = False) -> str:
-    """Compile ``csrc/edge_mlp.cu`` for sm_90a into a shared library.
+def build_kernel(verbose: bool = False) -> Dict[str, str]:
+    """Compile the two kernel sources for sm_90a into shared libraries.
 
-    The library is named by the source's hash, so an edited source is
-    rebuilt and a built one is reused. ``verbose`` adds ``-Xptxas -v`` (the
-    per-kernel register and shared-memory report lands in ``BUILD_INFO``).
+    ``csrc/edge_mlp.cu`` (bfloat16) and ``csrc/edge_mlp_f32.cu`` (float32)
+    are built side by side, one ``nvcc`` each. A library is named by its
+    source's hash, so an edited source is rebuilt and a built one is reused.
+    ``verbose`` rebuilds with ``-Xptxas -v`` (the per-kernel register and
+    spill report lands in ``BUILD_INFO``). Returns the libraries' paths by
+    source name; a failed build raises.
     """
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_BUILD_DIR, f"libedge_mlp_{digest}.so")
-    if os.path.exists(path) and not verbose:
-        BUILD_INFO.update(seconds=0.0, log="", path=path)
-        return path
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, _SRC]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, path)
-    BUILD_INFO.update(seconds=time.perf_counter() - t0,
-                      log=proc.stdout + proc.stderr, path=path)
-    return path
+    paths, running = {}, []
+    for name, src in _SOURCES.items():
+        with open(src, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        path = os.path.join(_BUILD_DIR, f"lib{name}_{digest}.so")
+        paths[name] = path
+        if os.path.exists(path) and not verbose:
+            continue
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-o",
+               tmp, src]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        running.append((name, tmp, path, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for name, tmp, path, proc in running:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0 if running else 0.0,
+                      log=log, paths=paths)
+    return paths
 
 
-def _load() -> ctypes.CDLL:
-    global _lib, _LIMITS
-    if _lib is None:
-        lib = ctypes.CDLL(build_kernel())
+def _load() -> Dict[str, ctypes.CDLL]:
+    global _libs, _LIMITS
+    if _libs is None:
+        paths = build_kernel()
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mlcg_edge_mlp.restype = ci
-        lib.mlcg_edge_mlp.argtypes = [ci, ci, ci, ci, ci, ci, vp, vp, vp, vp,
-                                      vp, ci, vp, vp, vp, vp, vp, cf, vp, vp]
-        lib.mlcg_cuda_error_string.restype = ctypes.c_char_p
-        lib.mlcg_cuda_error_string.argtypes = [ci]
-        for fn in (lib.mlcg_edge_mlp_max_nodes, lib.mlcg_edge_mlp_max_hidden,
-                   lib.mlcg_edge_mlp_max_edge_feats):
+        bf = ctypes.CDLL(paths["edge_mlp"])
+        bf.mlcg_edge_mlp.restype = ci
+        bf.mlcg_edge_mlp.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp,
+                                     ci, vp, vp, vp, vp, vp, cf, vp, vp, vp]
+        bf.mlcg_cuda_error_string.restype = ctypes.c_char_p
+        bf.mlcg_cuda_error_string.argtypes = [ci]
+        f32 = ctypes.CDLL(paths["edge_mlp_f32"])
+        f32.mlcg_edge_mlp_f32.restype = ci
+        f32.mlcg_edge_mlp_f32.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp,
+                                          vp, ci, vp, vp, vp, vp, vp, cf, vp,
+                                          vp]
+        for fn in (bf.mlcg_edge_mlp_max_nodes, bf.mlcg_edge_mlp_max_hidden,
+                   bf.mlcg_edge_mlp_max_edge_feats,
+                   bf.mlcg_edge_mlp_w1_tile_bytes,
+                   f32.mlcg_edge_mlp_f32_max_nodes):
             fn.restype = ci
             fn.argtypes = []
-        _LIMITS = (lib.mlcg_edge_mlp_max_nodes(),
-                   lib.mlcg_edge_mlp_max_hidden(),
-                   lib.mlcg_edge_mlp_max_edge_feats())
-        _lib = lib
-    return _lib
+        if (bf.mlcg_edge_mlp_w1_tile_bytes() != _NH * 128
+                or bf.mlcg_edge_mlp_max_hidden() != _NP):
+            raise RuntimeError("the built kernel and pack_w1 disagree on the "
+                               "packed W1 layout")
+        _LIMITS = (f32.mlcg_edge_mlp_f32_max_nodes(),
+                   bf.mlcg_edge_mlp_max_nodes(),
+                   bf.mlcg_edge_mlp_max_hidden(),
+                   bf.mlcg_edge_mlp_max_edge_feats())
+        _libs = {"bfloat16": bf, "float32": f32}
+    return _libs
 
 
 def fused_edge_pass_reference(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
@@ -162,6 +269,9 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
     (H,); w1: (H, H) in torch layout [out][in]; bh: (1,) or None (zero).
     All in one operand type. Returns (B, N, H) for "gcl", (B, N^2, 1) for
     "coord", float32 (float64 for float64 CPU inputs).
+
+    On the card float32 takes N <= 64 and bfloat16 N <= 128; both H <= 448
+    with H a multiple of 4 and E <= 4.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -177,12 +287,13 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
     B, N, H = u.shape
     E = ef.shape[-1]
     dev = u.device
-    lib = _load()
-    max_n, max_h, max_e = _LIMITS
+    libs = _load()
+    bf16 = dt == torch.bfloat16
+    max_n, max_h, max_e = _LIMITS[1 if bf16 else 0], _LIMITS[2], _LIMITS[3]
     if N > max_n or H > max_h or H % 4 or E > max_e:
-        raise ValueError(f"the kernel takes N <= {max_n}, H <= {max_h} with H "
-                         f"a multiple of 4, E <= {max_e}; got N={N}, H={H}, "
-                         f"E={E}")
+        raise ValueError(f"the {'bfloat16' if bf16 else 'float32'} kernel "
+                         f"takes N <= {max_n}, H <= {max_h} with H a multiple "
+                         f"of 4, E <= {max_e}; got N={N}, H={H}, E={E}")
     _check("v", v, (B, N, H), dt, dev)
     _check("ef", ef, (B, N * N, E), dt, dev)
     _check("w_e", w_e, (H, E), dt, dev)
@@ -204,23 +315,29 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
                              "b0, w1, b1 and wh")
     if E > 0 and w_e.stride(1) != 1:
         raise ValueError("w_e needs unit column stride")
-    for name, t in (("u", u), ("v", v), ("b0", b0), ("w1", w1), ("b1", b1),
-                    ("wh", wh)):
+    for name, t in (("u", u), ("v", v), ("b0", b0), ("w1", w1)):
         if t.data_ptr() % 8:
             raise ValueError(f"{name} must be 8-byte aligned")
+    w1_arg = packed_w1(w1) if bf16 else w1
     out_shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
+    shared = (B, N, H, E, u.data_ptr(), v.data_ptr(), ef.data_ptr(),
+              em.data_ptr() if mode == "gcl" else None, w_e.data_ptr(),
+              w_e.stride(0), b0.data_ptr(), w1_arg.data_ptr(), b1.data_ptr(),
+              wh.data_ptr(), bh.data_ptr() if bh is not None else None,
+              float(norm), out.data_ptr())
     with torch.cuda.device(dev):   # the kernel launches on the current device
-        rc = lib.mlcg_edge_mlp(
-            _DTYPES[dt], _MODES[mode], B, N, H, E, u.data_ptr(), v.data_ptr(),
-            ef.data_ptr(), em.data_ptr() if mode == "gcl" else None,
-            w_e.data_ptr(), w_e.stride(0), b0.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), wh.data_ptr(),
-            bh.data_ptr() if bh is not None else None, float(norm),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if bf16:
+            rc = libs["bfloat16"].mlcg_edge_mlp(_MODES[mode], *shared, None,
+                                                stream)
+        else:
+            rc = libs["float32"].mlcg_edge_mlp_f32(_MODES[mode], *shared,
+                                                   stream)
     if rc != 0:
-        raise RuntimeError("edge pass kernel failed: "
-                           + lib.mlcg_cuda_error_string(rc).decode())
+        raise RuntimeError(
+            "edge pass kernel failed: "
+            + libs["bfloat16"].mlcg_cuda_error_string(rc).decode())
     LAUNCHES[mode] += 1
     return out
 

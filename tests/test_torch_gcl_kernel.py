@@ -18,13 +18,15 @@ from ml_conformer_generator_tpu.ops.gcl_kernel import \
 from ml_conformer_generator_tpu.utils.masks import prepare_masks
 from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
 
-B, N, H, E = 3, 42, 64, 2
+B, H, E = 3, 64, 2
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, N=42, sizes=None):
+    """B graphs on a node axis of N: of ``sizes`` nodes, or of 15 to 39."""
     rng = np.random.default_rng(seed)
-    node_mask, edge_mask = prepare_masks(
-        jnp.asarray(rng.integers(15, 40, size=B)), N)
+    if sizes is None:
+        sizes = rng.integers(15, 40, size=B)
+    node_mask, edge_mask = prepare_masks(jnp.asarray(sizes), N)
     nm = np.asarray(node_mask)
     f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)
     return {
@@ -37,8 +39,8 @@ def _inputs(seed=0):
     }, nm
 
 
-def _run_both(mode, jdt, tdt, seed=0):
-    a, nm = _inputs(seed)
+def _run_both(mode, jdt, tdt, seed=0, N=42, sizes=None):
+    a, nm = _inputs(seed, N, sizes)
     J = {k: jnp.asarray(v, jdt) for k, v in a.items()}
     bh = J["bh"].reshape(1, 1) if mode == "gcl" else jnp.zeros((1, 1), jdt)
     ref = jax_fused_edge_pass(
@@ -57,6 +59,17 @@ def _run_both(mode, jdt, tdt, seed=0):
 @pytest.mark.parametrize("mode", ["gcl", "coord"])
 def test_edge_pass_f32_matches_jax_kernel(mode):
     out, ref, _ = _run_both(mode, jnp.float32, torch.float32)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
+@pytest.mark.parametrize("n_nodes", [56, 64])
+def test_edge_pass_f32_matches_jax_kernel_at_more_nodes(mode, n_nodes):
+    """Node counts past 48: the JAX kernel takes any N, and so does the
+    port. Every graph has live nodes past index 48, one fills the axis."""
+    out, ref, _ = _run_both(mode, jnp.float32, torch.float32, N=n_nodes,
+                            sizes=[n_nodes, n_nodes - 3, 50])
     assert out.shape == ref.shape
     np.testing.assert_allclose(out, ref, atol=2e-5, rtol=1e-5)
 
@@ -82,7 +95,7 @@ def test_cpu_tensors_do_not_launch():
 def test_module_imports_without_nvcc():
     code = ("import os; os.environ['PATH'] = ''; "
             "import ml_conformer_generator_tpu_torch.ops.gcl_kernel as gk; "
-            "assert gk._lib is None; print('ok')")
+            "assert gk._libs is None; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr

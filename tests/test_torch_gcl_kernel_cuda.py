@@ -28,7 +28,7 @@ def _inputs(dtype, B=3, N=42, H=64, E=2, seed=0):
     """Operands as the model passes them; w_e a column block of the first
     edge layer (row stride 2H + E)."""
     rng = np.random.default_rng(seed)
-    n = rng.integers(15, N + 1, size=B)
+    n = rng.integers(min(15, N), N + 1, size=B)
     nm = (np.arange(N)[None] < n[:, None]).astype(np.float32)
     em = nm[:, :, None] * nm[:, None, :] * (1 - np.eye(N, dtype=np.float32))
 
@@ -44,14 +44,26 @@ def _inputs(dtype, B=3, N=42, H=64, E=2, seed=0):
     return args, torch.tensor(nm, device="cuda")
 
 
+# (B, N, H): nodes that do not fill a tile (42, 24), the full width (420),
+# more than 48 and more than 64 nodes. float32 takes N <= 64.
+BF16_SHAPES = [(3, 42, 64), (3, 40, 420), (5, 24, 420), (2, 64, 420),
+               (1, 100, 64)]
+F32_SHAPES = [(3, 42, 64), (3, 40, 420), (2, 64, 420)]
+
+
 @pytest.mark.parametrize("mode", ["gcl", "coord"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_tensors_launch_the_kernel(card, mode, dtype):
+@pytest.mark.parametrize(
+    "dtype,shape",
+    [(torch.bfloat16, s) for s in BF16_SHAPES]
+    + [(torch.float32, s) for s in F32_SHAPES])
+def test_cuda_tensors_launch_the_kernel(card, mode, dtype, shape):
     """A CUDA tensor launches the kernel (never the plain version), and the
     kernel matches the plain version: f32 1e-5/1e-4 (the j-sum order
     differs); bf16 gcl 5e-3/1e-2 (its outputs are j-sums / 100, mostly below
-    0.1), bf16 coord 5e-2; masked rows are exactly 0."""
-    args, nm = _inputs(dtype)
+    0.1), bf16 coord 5e-2 (the f32 order of the head's sum differs too);
+    masked rows are exactly 0."""
+    B, N, H = shape
+    args, nm = _inputs(dtype, B=B, N=N, H=H)
     if mode == "coord":
         args["em"], args["bh"] = None, None
     gk.reset_launch_counts()
@@ -81,4 +93,30 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         gk.fused_edge_pass(**dict(args, em=None), mode="gcl")
     with pytest.raises(ValueError):
         gk.fused_edge_pass(**dict(args, v=args["v"].cpu()), mode="gcl")
+    # bfloat16 takes at most 128 nodes, float32 at most 64, both H <= 448
+    with pytest.raises(ValueError, match="N <= 128"):
+        gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=130, H=64)[0],
+                           mode="gcl")
+    with pytest.raises(ValueError, match="N <= 64"):
+        gk.fused_edge_pass(**_inputs(torch.float32, B=1, N=72, H=64)[0],
+                           mode="gcl")
+    with pytest.raises(ValueError, match="H <= 448"):
+        gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=8, H=452)[0],
+                           mode="coord")
     assert gk.LAUNCHES == {"gcl": 0, "coord": 0}
+
+
+def test_w1_is_packed_once_per_weight(card):
+    """The packed W1 is cached per weight tensor; an in-place change packs
+    again, and the kernel then follows the new weight."""
+    args, _ = _inputs(torch.bfloat16, B=2, N=32, H=420)
+    gk.reset_pack_count()
+    first = gk.fused_edge_pass(**args, mode="gcl")
+    second = gk.fused_edge_pass(**args, mode="gcl")
+    assert gk.PACKS == 1 and torch.equal(first, second)
+    args["w1"].mul_(0.5)
+    third = gk.fused_edge_pass(**args, mode="gcl")
+    ref = gk.fused_edge_pass_reference(**args, mode="gcl").float()
+    assert gk.PACKS == 2
+    torch.testing.assert_close(third, ref, atol=5e-3, rtol=1e-2)
+    assert (third - first).abs().max().item() > 1e-3
