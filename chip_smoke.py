@@ -12,26 +12,27 @@ It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
 csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32, one
 ``nvcc`` each, side by side) and drives the port's main path, the
 reference-conditioned ``MLConformerGenerator.generate_conformers``, at full
-width (EGNN 420 x 9 blocks in bf16, AdjMatSeer 2048) with random weights
-made from a seed. Phases:
+width (EGNN 420 x 9 blocks, AdjMatSeer 2048) with random weights made from a
+seed, in bf16 (the default) and in float32. Phases:
 
 1. environment: device, name and power limit from nvidia-smi; TF32 off;
-2. build: ``nvcc`` for sm_90a, with the build time;
+2. build: ``nvcc`` for sm_90a, with the build time, and per source ptxas's
+   registers, spills and C7511 notes and the wgmma instructions in the SASS;
 3. kernel: each edge-pass mode (gcl, coord) in bf16 and f32 against its
    plain PyTorch version on the card, at the production shape (B=128, N=40),
    at a shape with more than 48 nodes (B=16, N=64), at one whose graphs do
-   not fill their last tile of target nodes (B=5, N=40) and at the shape
-   this run's request gives it; kernel, plain and library times (CUDA
-   events) beside the bound; then the cache of packed W1: a second launch
-   packs nothing, an in-place change of W1 packs again and changes the
-   result;
+   not fill their last tile of target nodes (B=5, N=40), at the most nodes
+   a tile holds (B=8, N=128) and at the shape this run's request gives it;
+   kernel, plain and library times (CUDA events) beside the bound; then the
+   cache of packed W1 in both types: a second launch packs nothing, an
+   in-place change of W1 packs again and changes the result;
 4. model: one full-width bf16 ``dynamics_forward`` through the kernel
    against the same forward through the plain version;
 5. end to end: a short f32 generation through the kernel against the same
    generation through the plain version, a short bf16 generation of
-   molecules of up to 60 atoms, then ``generate_conformers`` twice
-   (warm-up, timed) with exact launch counts and no W1 packed in the timed
-   one.
+   molecules of up to 60 atoms, then the request ``generate_conformers``
+   twice (warm-up, timed) in bf16 and then in float32, each with exact
+   launch counts and no W1 packed in the timed one.
 
 Any failed check raises, so the script exits non-zero and does not print its
 last line, ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
@@ -48,12 +49,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "ml_conformer_generator_tpu_torch"
 KERNEL_SOURCE = f"{PACKAGE}/csrc/edge_mlp.cu"      # bf16: the main path
-KERNEL_SOURCES = (KERNEL_SOURCE, f"{PACKAGE}/csrc/edge_mlp_f32.cu")
+F32_SOURCE = f"{PACKAGE}/csrc/edge_mlp_f32.cu"     # float32 (3xTF32)
+KERNEL_SOURCES = {"edge_mlp": KERNEL_SOURCE, "edge_mlp_f32": F32_SOURCE}
 TPU_KERNEL = "ml_conformer_generator_tpu/ops/gcl_kernel.py:160"
 
 # The request: 64 samples, variance 2, 100 steps, around this reference.
 N_SAMPLES, VARIANCE, STEPS = 64, 2, 100
-# Published H100 SXM peaks (dense): bf16 tensor cores, f32 outside them.
+# Published H100 SXM peaks (dense) for what each kernel computes: bf16 on the
+# tensor cores; f32-accurate products as 3xTF32, three TF32 tensor-core
+# products (495 TFLOP/s) for each (see edge_pass_bound).
 # Kernel against plain, (atol, rtol) by (type, mode). bf16 gcl outputs are
 # j-sums / 100, mostly below 0.1, so their bar is set from the measured
 # error (~3e-3 at most), not from bf16's 8 mantissa bits; the per-edge coord
@@ -62,7 +66,7 @@ TOLERANCE = {("bfloat16", "gcl"): (5e-3, 1e-2),
              ("bfloat16", "coord"): (5e-2, 5e-2),
              ("float32", "gcl"): (1e-5, 1e-4),
              ("float32", "coord"): (1e-5, 1e-4)}
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "float32": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 
 # A drug-like reference, heavy atoms only: (atomic number, x, y, z) in
@@ -87,6 +91,26 @@ _REFERENCE = [
 
 def log(*args):
     print(*args, flush=True)
+
+
+def sass_mma(gk, lib_path):
+    """The tensor-core instructions in a built library's SASS, by opcode
+    and count (from ``cuobjdump -sass``), e.g. {"HGMMA.64x224x8.F32.TF32":
+    24}: what the source's wgmma became."""
+    cuobjdump = os.path.join(os.path.dirname(os.path.realpath(gk._nvcc())),
+                             "cuobjdump")
+    try:
+        sass = subprocess.run([cuobjdump, "-sass", lib_path],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"not read ({type(exc).__name__})"
+    ops = {}
+    for line in sass.splitlines():
+        for word in line.replace(";", " ").split():
+            if word.startswith(("HGMMA", "HMMA")):
+                ops[word] = ops.get(word, 0) + 1
+    return ops or "no tensor-core instructions"
 
 
 def check(cond, what):
@@ -115,8 +139,13 @@ def edge_pass_bound(B, N, H, E, dtype_name, mode):
     """Least time (ms) of one edge pass on an H100, and what bounds it.
 
     Operations: the per-edge products of the kernel (edge scalars through
-    W_e, m1 through W1, m2 through the head), 2 B N^2 H (H + E + 1).
-    Bytes: each input read once, the float32 output written once."""
+    W_e, m1 through W1, m2 through the head), 2 B N^2 H (H + E + 1), at the
+    rate of the kind of product the kernel does. bf16: the bf16 tensor
+    cores. float32: f32-accurate products taken as 3xTF32, three TF32
+    tensor-core products for each, so a third of the TF32 rate (165
+    TFLOP/s). Counted at the f32 FMA rate (67 TFLOP/s) instead, the bound
+    would sit below what the kernel reaches, and its share would read over
+    100%. Bytes: each input read once, the float32 output written once."""
     el = 2 if dtype_name == "bfloat16" else 4
     ops = 2.0 * B * N * N * H * (H + E + 1)
     n_in = 2 * B * N * H + B * N * N * E + H * E + H * H + 3 * H
@@ -239,10 +268,11 @@ def kernel_phase(torch, gk, B, N, sizes, card, H=420):
     return out
 
 
-def pack_cache_phase(torch, gk, B=8, N=32, H=420):
+def pack_cache_phase(torch, gk, dtype, B=8, N=32, H=420):
     """The packed W1 is made once per weight: a second launch packs
     nothing; an in-place change of W1 packs again and changes the result."""
-    a, _ = edge_inputs(torch, B, N, H, torch.bfloat16, (N // 2, N), seed=7)
+    name = str(dtype).replace("torch.", "")
+    a, _ = edge_inputs(torch, B, N, H, dtype, (N // 2, N), seed=7)
     gk.reset_pack_count()
     first = gk.fused_edge_pass(**a, mode="gcl")
     packs_first = gk.PACKS
@@ -258,7 +288,7 @@ def pack_cache_phase(torch, gk, B=8, N=32, H=420):
            "same_result_twice": torch.equal(first, second),
            "change_of_result": (third - first).abs().max().item(),
            "max_abs_err_after_change": (third - ref).abs().max().item()}
-    log(f"[kernel] packed W1 cache: {json.dumps(rec)}")
+    log(f"[kernel] packed W1 cache, {name}: {json.dumps(rec)}")
     check(packs_first == 1 and packs_second == packs_first,
           f"W1 is not packed exactly once: {rec}")
     check(rec["packs_after_inplace_change"] == 1,
@@ -266,39 +296,49 @@ def pack_cache_phase(torch, gk, B=8, N=32, H=420):
     check(rec["same_result_twice"], f"two launches disagree: {rec}")
     check(rec["change_of_result"] > 1e-3,
           f"the changed W1 did not change the result: {rec}")
-    atol, rtol = TOLERANCE["bfloat16", "gcl"]
+    atol, rtol = TOLERANCE[name, "gcl"]
     check(((third - ref).abs() <= atol + rtol * ref.abs()).all().item(),
           f"after the change the kernel disagrees with plain: {rec}")
 
 
-PHASES = ["build_m1", "product_half0", "epilogue_half0", "product_half1",
-          "epilogue_half1", "gate_and_store", "jsum_and_tile_end"]
+# The clock slots of each kernel (the C entries' notes give their bounds).
+PHASES = {"bfloat16": ["build_m1", "product_half0", "epilogue_half0",
+                       "product_half1", "epilogue_half1", "gate_and_store",
+                       "jsum_and_tile_end"],
+          "float32": ["tile_rows", "product_half0", "epilogue_half0",
+                      "product_half1", "epilogue_half1",
+                      "gate_and_jsum_half0", "jsum_half1_and_tile_end"]}
 
 
-def phase_clocks(torch, gk, B, N, sizes, H=420):
-    """Where a block of the bf16 kernel spends its clocks: one launch per
-    mode through the library's C entry with its optional clock buffer (the
-    first thread of each block adds the SM's clocks between phases; the
-    package's wrapper always passes none). Only with ``--profile``."""
+def phase_clocks(torch, gk, B, N, sizes, dtype, H=420):
+    """Where a block of the kernel of ``dtype`` spends its clocks: one
+    launch per mode through the library's C entry with its optional clock
+    buffer (the first thread of each block adds the SM's clocks between
+    phases; the package's wrapper always passes none). In the f32 kernel
+    the product phases include building m1, which overlaps the products.
+    Only with ``--profile``."""
     import ctypes
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib = ctypes.CDLL(gk.build_kernel()["edge_mlp"])
-    lib.mlcg_edge_mlp.restype = ci
-    lib.mlcg_edge_mlp.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci,
-                                  vp, vp, vp, vp, vp, cf, vp, vp, vp]
-    lib.mlcg_edge_mlp_prof_slots.restype = ci
+    name = str(dtype).replace("torch.", "")
+    bf16 = dtype == torch.bfloat16
+    lib = ctypes.CDLL(gk.build_kernel()["edge_mlp" if bf16 else "edge_mlp_f32"])
+    entry = lib.mlcg_edge_mlp if bf16 else lib.mlcg_edge_mlp_f32
+    slots = (lib.mlcg_edge_mlp_prof_slots if bf16
+             else lib.mlcg_edge_mlp_f32_prof_slots)
+    entry.restype = slots.restype = ci
+    entry.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp,
+                      vp, vp, cf, vp, vp, vp]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    a, _ = edge_inputs(torch, B, N, H, torch.bfloat16, sizes, seed=B * N)
+    a, _ = edge_inputs(torch, B, N, H, dtype, sizes, seed=B * N)
     w1p = gk.packed_w1(a["w1"])
     ptr = {k: t.data_ptr() for k, t in a.items()}
     for mode in ("gcl", "coord"):
         gcl = mode == "gcl"
-        clocks = torch.zeros(sms, lib.mlcg_edge_mlp_prof_slots(),
-                             dtype=torch.int64, device="cuda")
+        clocks = torch.zeros(sms, slots(), dtype=torch.int64, device="cuda")
         out = torch.empty((B, N, H) if gcl else (B, N * N, 1),
                           dtype=torch.float32, device="cuda")
-        rc = lib.mlcg_edge_mlp(
+        rc = entry(
             0 if gcl else 1, B, N, H, 2, ptr["u"], ptr["v"], ptr["ef"],
             ptr["em"] if gcl else None, ptr["w_e"], a["w_e"].stride(0),
             ptr["b0"], w1p.data_ptr(), ptr["b1"], ptr["wh"],
@@ -314,11 +354,12 @@ def phase_clocks(torch, gk, B, N, sizes, H=420):
         per_block = clocks.sum(0).double() / clocks.shape[0]
         total = per_block.sum().item()
         log("[profile] " + json.dumps({
-            "phase_clocks": {"B": B, "N": N, "H": H, "mode": mode},
+            "phase_clocks": {"B": B, "N": N, "H": H, "mode": mode,
+                             "dtype": name},
             "clocks_per_block": {n: int(c) for n, c in
-                                 zip(PHASES, per_block.tolist())},
+                                 zip(PHASES[name], per_block.tolist())},
             "share": {n: round(c / total, 4) for n, c in
-                      zip(PHASES, per_block.tolist())}}))
+                      zip(PHASES[name], per_block.tolist())}}))
 
 
 def profile_request(torch, gen, kw, req_s):
@@ -349,6 +390,61 @@ def profile_request(torch, gen, kw, req_s):
         "busy_share_unprofiled": busy_s / req_s if busy_s else "not measured",
         "top_kernels": [{"name": e.key[:70], "count": e.count,
                          "device_ms": dev_us(e) / 1e3} for e in top]}))
+
+
+def timed_request(torch, gk, gen, samples, kw, n_pad, path, name, ref_n):
+    """The request through ``gen`` twice: a warm-up, then the timed one with
+    the launch and W1-pack counts set to 0 just before it and read just
+    after. Checks the counts (one pack per edge MLP in the warm-up, none
+    after) and the samples' shapes and atom types; logs samples/s and the
+    stage split. ``samples``: the sampler's outputs, as ``recorded``
+    collects them. Returns the request's record."""
+    from ml_conformer_generator_tpu_torch.chem import native
+
+    blocks = gen.egnn_cfg.n_blocks
+    gk.reset_pack_count()
+    t0 = time.perf_counter()
+    gen.generate_conformers(**kw)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    warm_packs = gk.PACKS
+    gk.reset_launch_counts()
+    gk.reset_pack_count()
+    t0 = time.perf_counter()
+    valid = gen.generate_conformers(**kw)
+    torch.cuda.synchronize()
+    req_s = time.perf_counter() - t0
+    launches = dict(gk.LAUNCHES)
+    packs = gk.PACKS
+    want = {"gcl": 2 * blocks * (STEPS + 1), "coord": blocks * (STEPS + 1)}
+    x, h, nm = samples[-1]
+    nonfinite = int((~torch.isfinite(x)).flatten(1).any(1).sum().item())
+    check(launches == want,
+          f"{name} request launches {launches}, expected {want}")
+    check(warm_packs == 3 * blocks and packs == 0,
+          f"{name} W1 packs: {warm_packs} in the warm-up request (expected "
+          f"one per edge MLP, {3 * blocks}), {packs} in the timed one "
+          f"(expected 0)")
+    check(tuple(x.shape) == (N_SAMPLES, n_pad, 3)
+          and tuple(h.shape) == (N_SAMPLES, n_pad, 8),
+          f"sample shapes {tuple(x.shape)} {tuple(h.shape)}")
+    check(torch.equal(h.sum(-1), nm[..., 0].to(h.dtype)),
+          "h is not one-hot on real nodes and zero on padding")
+    check(h[..., 7].max().item() == 0.0, "class 7 (Br) was emitted")
+    by_mode = {r["mode"]: r for r in path if r["dtype"] == name}
+    edge_s = sum(launches[m] * by_mode[m]["kernel_ms"] for m in launches) / 1e3
+    rec = {"dtype": name, "n_samples": N_SAMPLES, "steps": STEPS, "N": n_pad,
+           "reference_heavy_atoms": ref_n, "warmup_s": warm_s,
+           "request_s": req_s, "samples_per_s": N_SAMPLES / req_s,
+           "valid": len(valid), "nonfinite_samples": nonfinite,
+           "launches": launches, "w1_packs_warmup": warm_packs,
+           "w1_packs": packs, "edge_kernel_s_estimate": edge_s,
+           "edge_kernel_share_of_sampling": edge_s
+           / gen.last_metrics["edm_sampling_s"],
+           "native_chemistry_worker": native.available(),
+           "last_metrics": gen.last_metrics}
+    log(f"[e2e] {json.dumps(rec)}")
+    return rec
 
 
 def main() -> int:
@@ -382,11 +478,11 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}; device {kind}; "
         f"count {torch.cuda.device_count()}; nvidia-smi: {smi}")
-    log("[env] TF32 off for matmul and cuDNN: f32 is full f32 everywhere")
+    log("[env] TF32 off for matmul and cuDNN: the plain versions' f32 "
+        "products are full f32")
     log(f"[env] {card[0]} SMs, max SM clock {max_clock_mhz:.0f} MHz (for "
         f"the elementwise floor)")
 
-    from ml_conformer_generator_tpu_torch.chem import native
     from ml_conformer_generator_tpu_torch.chem.mol import Molecule
     from ml_conformer_generator_tpu_torch.config import EGNNConfig
     from ml_conformer_generator_tpu_torch.generator import MLConformerGenerator
@@ -398,28 +494,32 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    gk.build_kernel(verbose=True)
-    build_log = gk.BUILD_INFO["log"].splitlines()
-    regs = [int(line.split("Used ")[1].split()[0]) for line in build_log
-            if "Used " in line and "registers" in line]
-    spills = [line.strip() for line in build_log
-              if "spill" in line and not line.strip().startswith("0 bytes")]
-    # ptxas C7511: wgmma serialized for want of registers.
-    serialized = sum("C7511" in line or "instructions are serialized" in line
-                     for line in build_log)
-    log(f"[build] nvcc sm_90a {', '.join(KERNEL_SOURCES)} (side by side): "
-        f"{time.perf_counter() - t0:.1f} s, {len(regs)} instantiations, "
-        f"registers {min(regs)}..{max(regs)}, spilling: {spills or 'none'}, "
-        f"wgmma serialized (ptxas C7511): {serialized or 'no'}")
-    if "--profile" in sys.argv[1:]:
-        # ptxas's report of the bf16 kernel's instantiations, as it gave it.
-        for i, line in enumerate(build_log):
-            if "instructions are serialized" in line:
-                log("[build] " + line.strip())
-            if "Compiling entry function" in line and "bf16" in line:
-                log("[build] " + " | ".join(
-                    l.replace("ptxas info    :", "").strip()
-                    for l in build_log[i:i + 4]))
+    paths = gk.build_kernel(verbose=True)
+    log(f"[build] nvcc sm_90a {', '.join(KERNEL_SOURCES.values())} (side by "
+        f"side): {time.perf_counter() - t0:.1f} s")
+    for name, src in KERNEL_SOURCES.items():
+        build_log = gk.BUILD_INFO["logs"][name].splitlines()
+        regs = [int(line.split("Used ")[1].split()[0]) for line in build_log
+                if "Used " in line and "registers" in line]
+        spills = [line.strip() for line in build_log if "spill" in line
+                  and not line.strip().startswith("0 bytes")]
+        # ptxas C7511: wgmma serialized for want of registers.
+        serialized = sum("C7511" in line
+                         or "instructions are serialized" in line
+                         for line in build_log)
+        log(f"[build] {src}: {len(regs)} instantiations, registers "
+            f"{min(regs)}..{max(regs)}, spilling: {spills or 'none'}, "
+            f"wgmma serialized (ptxas C7511): {serialized or 'no'}; "
+            f"SASS: {sass_mma(gk, paths[name])}")
+        if "--profile" in sys.argv[1:]:
+            # ptxas's report of the kernel's instantiations, as it gave it.
+            for i, line in enumerate(build_log):
+                if "instructions are serialized" in line:
+                    log("[build] " + line.strip())
+                if "Compiling entry function" in line:
+                    log("[build] " + " | ".join(
+                        l.replace("ptxas info    :", "").strip()
+                        for l in build_log[i:i + 4]))
 
     # -- 3. kernel -----------------------------------------------------------
     ref_n = len(_REFERENCE)
@@ -432,9 +532,12 @@ def main() -> int:
         "fill their last tile (B=5 N=40: 3 target nodes a tile)")
     kernel_phase(torch, gk, 16, 64, (40, 64), card)
     kernel_phase(torch, gk, 5, 40, (15, 39), card)
+    log("[kernel] the most nodes a tile holds (B=8 N=128)")
+    kernel_phase(torch, gk, 8, 128, (100, 128), card)
     path = kernel_phase(torch, gk, N_SAMPLES, n_pad,
                         (ref_n - VARIANCE, max_n), card)
-    pack_cache_phase(torch, gk)
+    for dtype in (torch.bfloat16, torch.float32):
+        pack_cache_phase(torch, gk, dtype)
 
     # -- 4. model: full-width bf16 forward, kernel against plain ---------------
     cfg = EGNNConfig(compute_dtype="bfloat16")
@@ -526,81 +629,53 @@ def main() -> int:
           f"launches with max_n_nodes=60: {gk.LAUNCHES}")
     del big
 
-    # 5b. the request, at full width in bf16
-    t0 = time.perf_counter()
-    gen = MLConformerGenerator(diffusion_steps=STEPS, seed=0)
-    log(f"[e2e] MLConformerGenerator() on {gen.device} in "
-        f"{time.perf_counter() - t0:.1f} s (420 x 9 EGNN, bf16; "
-        f"AdjMatSeer 2048; random weights, seed 0)")
-    check(gen.device.type == "cuda", "the generator is not on the card")
-    samples = recorded(gen)
+    # 5b. the request, at full width in bf16 (the default), then in float32
     kw = dict(reference_conformer=reference, n_samples=N_SAMPLES,
               variance=VARIANCE, optimise_geometry=True)
-    gk.reset_pack_count()
-    t0 = time.perf_counter()
-    gen.generate_conformers(**kw)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    warm_packs = gk.PACKS
-    gk.reset_launch_counts()
-    gk.reset_pack_count()
-    t0 = time.perf_counter()
-    valid = gen.generate_conformers(**kw)
-    torch.cuda.synchronize()
-    req_s = time.perf_counter() - t0
-    e2e_launches = dict(gk.LAUNCHES)
-    e2e_packs = gk.PACKS
-    want = {"gcl": 18 * (STEPS + 1), "coord": 9 * (STEPS + 1)}
-    x, h, nm = samples[-1]
-    nonfinite = int((~torch.isfinite(x)).flatten(1).any(1).sum().item())
-    check(e2e_launches == want,
-          f"request launches {e2e_launches}, expected {want}")
-    check(warm_packs == 3 * cfg.n_blocks and e2e_packs == 0,
-          f"W1 packs: {warm_packs} in the warm-up request (expected one per "
-          f"edge MLP, {3 * cfg.n_blocks}), {e2e_packs} in the timed one "
-          f"(expected 0)")
-    check(tuple(x.shape) == (N_SAMPLES, n_pad, 3)
-          and tuple(h.shape) == (N_SAMPLES, n_pad, 8),
-          f"sample shapes {tuple(x.shape)} {tuple(h.shape)}")
-    check(torch.equal(h.sum(-1), nm[..., 0].to(h.dtype)),
-          "h is not one-hot on real nodes and zero on padding")
-    check(h[..., 7].max().item() == 0.0, "class 7 (Br) was emitted")
-    by_mode = {r["mode"]: r for r in path if r["dtype"] == "bfloat16"}
-    edge_s = sum(e2e_launches[m] * by_mode[m]["kernel_ms"]
-                 for m in e2e_launches) / 1e3
-    e2e = {"n_samples": N_SAMPLES, "steps": STEPS, "N": n_pad,
-           "reference_heavy_atoms": ref_n, "warmup_s": warm_s,
-           "request_s": req_s, "samples_per_s": N_SAMPLES / req_s,
-           "valid": len(valid), "nonfinite_samples": nonfinite,
-           "launches": e2e_launches,
-           "w1_packs_warmup": warm_packs, "w1_packs": e2e_packs,
-           "edge_kernel_s_estimate": edge_s,
-           "edge_kernel_share_of_sampling": edge_s
-           / gen.last_metrics["edm_sampling_s"],
-           "native_chemistry_worker": native.available(),
-           "last_metrics": gen.last_metrics}
-    log(f"[e2e] {json.dumps(e2e)}")
+    requests = {}
+    for name in ("bfloat16", "float32"):
+        t0 = time.perf_counter()
+        gen = MLConformerGenerator(diffusion_steps=STEPS, seed=0,
+                                   compute_dtype=name)
+        log(f"[e2e] MLConformerGenerator(compute_dtype={name!r}) on "
+            f"{gen.device} in {time.perf_counter() - t0:.1f} s (420 x 9 "
+            f"EGNN; AdjMatSeer 2048; random weights, seed 0)")
+        check(gen.device.type == "cuda", "the generator is not on the card")
+        requests[name] = timed_request(torch, gk, gen, recorded(gen), kw,
+                                       n_pad, path, name, ref_n)
+        if name == "bfloat16":
+            bf16_gen = gen
+        del gen
     log("[e2e] random weights: 0 valid molecules and diverging coordinates "
         "are expected and are not a failure")
     if "--profile" in sys.argv[1:]:
-        phase_clocks(torch, gk, N_SAMPLES, n_pad, (ref_n - VARIANCE, max_n))
-        phase_clocks(torch, gk, 128, 40, (15, 39))
-        profile_request(torch, gen, kw, req_s)
+        for dtype in (torch.bfloat16, torch.float32):
+            phase_clocks(torch, gk, N_SAMPLES, n_pad,
+                         (ref_n - VARIANCE, max_n), dtype)
+            phase_clocks(torch, gk, 128, 40, (15, 39), dtype)
+        profile_request(torch, bf16_gen, kw,
+                        requests["bfloat16"]["request_s"])
 
+    # One entry per kernel and mode, at the request's shape; launches are
+    # those of the request in the kernel's type.
     kernels = []
-    for mode in ("gcl", "coord"):
-        r = by_mode[mode]
-        bound_ms, bound_by = edge_pass_bound(r["B"], r["N"], r["H"], 2,
-                                             "bfloat16", mode)
-        kernels.append({
-            "name": f"edge_mlp_{mode}", "route": "cuda",
-            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-            "launches": e2e_launches[mode],
-            "max_abs_err": r["max_abs_err"], "ref_mean_abs": r["ref_mean_abs"],
-            "atol": r["atol"], "rtol": r["rtol"], "ms": r["kernel_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": r["library_ms"],
-            "dtype": "bfloat16", "shape": [r["B"], r["N"], r["H"]]})
+    for name, source, prefix in (("bfloat16", KERNEL_SOURCE, "edge_mlp"),
+                                 ("float32", F32_SOURCE, "edge_mlp_f32")):
+        by_mode = {r["mode"]: r for r in path if r["dtype"] == name}
+        for mode in ("gcl", "coord"):
+            r = by_mode[mode]
+            bound_ms, bound_by = edge_pass_bound(r["B"], r["N"], r["H"], 2,
+                                                 name, mode)
+            kernels.append({
+                "name": f"{prefix}_{mode}", "route": "cuda",
+                "source": source, "replaces": TPU_KERNEL,
+                "launches": requests[name]["launches"][mode],
+                "max_abs_err": r["max_abs_err"],
+                "ref_mean_abs": r["ref_mean_abs"],
+                "atol": r["atol"], "rtol": r["rtol"], "ms": r["kernel_ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": r["library_ms"],
+                "dtype": name, "shape": [r["B"], r["N"], r["H"]]})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -79,7 +79,7 @@
 // stay at SiLU(0) = 0 and carry zero head weight. Rows past the last edge of
 // a tile are built as zeros and written nowhere.
 //
-// The float32 kernel (off the main path, plain FMA) is edge_mlp_f32.cu.
+// The float32 kernel (3xTF32 on wgmma, N <= 128) is edge_mlp_f32.cu.
 //
 // Interface: a plain C function (mlcg_edge_mlp) that launches on the given
 // stream, allocates nothing, does not synchronise and returns

@@ -1,6 +1,7 @@
 """Fused EGNN edge pass: the Hopper CUDA kernel, its wrapper and its plain version.
 
-The kernel (``csrc/edge_mlp.cu``) replaces the TPU kernel
+The kernels (``csrc/edge_mlp.cu`` in bfloat16, ``csrc/edge_mlp_f32.cu`` in
+float32) replace the TPU kernel
 ``ml_conformer_generator_tpu/ops/gcl_kernel.py::_edge_kernel``. Per graph and
 edge it computes ``m = SiLU(SiLU(u_i + v_j + e_ij W_e + b0) W1^T + b1)`` and
 the scalar head ``m . wh + bh``; mode "gcl" returns the sigmoid-gated, masked
@@ -9,17 +10,19 @@ f32 j-sum ``out_i = sum_j m_ij gate_ij mask_ij / norm`` (B, N, H), mode
 
 What bounds it on an H100: the per-edge product with W1 (2 B N^2 H^2
 operations) against a few MB of per-node inputs, so tensor-core operations,
-not device memory; the two SiLUs per edge element load the f32 and
-special-function units about as much. The bf16 kernel (the main path) gives
-a persistent block tiles of 128 edge rows, whole target nodes each, runs the
-product on ``wgmma`` with m1 in swizzled shared memory and f32 accumulators
-in registers, and has one producer warp stream W1 through a ring of shared
-memory slots with one bulk copy per tile, completing on an ``mbarrier``.
-For that, W1 is packed once per weight (:func:`pack_w1`, cached by
-:func:`packed_w1`) into the padded, tiled and swizzled form the kernel
-consumes. The head, the gate and the masked j-sum stay inside the block.
-bf16 takes N <= 128; the f32 kernel (plain FMA, one target node per block)
-takes N <= 64. See the note at the top of the CUDA source.
+not device memory; the SiLUs per edge element load the f32 and
+special-function units about as much. Both kernels give a persistent block
+tiles of 128 edge rows, whole target nodes each, run the product on
+``wgmma`` with f32 accumulators in registers, and have one producer warp
+stream W1 through a ring of shared memory slots with one bulk copy per tile,
+completing on an ``mbarrier``. For that, W1 is packed once per weight
+(:func:`pack_w1`, cached by :func:`packed_w1`) into the padded, tiled and
+swizzled form the kernel consumes. The bf16 kernel (the main path) keeps m1
+in swizzled shared memory. The f32 kernel takes the product as 3xTF32: each
+operand split into a TF32 part and a TF32 residual, hi.hi + hi.lo + lo.hi,
+which keeps f32 accuracy; its pack holds both parts of W1, and it builds m1
+in registers. The head, the gate and the masked j-sum stay inside the block.
+Both take N <= 128. See the notes at the top of the CUDA sources.
 
 Dispatch: a CPU tensor goes to :func:`fused_edge_pass_reference`; a CUDA
 tensor launches the kernel or raises. There is no fallback on the card.
@@ -59,20 +62,27 @@ LAUNCHES: Dict[str, int] = {"gcl": 0, "coord": 0}
 #: weight is packed once and then served from the cache.
 PACKS = 0
 
-#: Packed W1 layout (bf16), as ``csrc/edge_mlp.cu`` consumes it: output rows
-#: padded to _NP and cut in halves of _NH, input columns in K-tiles of _KT;
-#: a tile is _NH rows of 128 bytes whose 16-byte chunks are XOR-swizzled with
-#: the row.
-_NP, _NH, _KT = 448, 224, 64
+#: Packed W1 layout, as the kernels consume it: output rows padded to _NP and
+#: cut in halves of _NH, input columns in K-tiles; a tile is _NH rows of 128
+#: bytes whose 16-byte chunks are XOR-swizzled with the row. A bf16 K-tile is
+#: _KT input columns; a float32 K-tile is _KT32 input columns, a row holding
+#: their 16 TF32 parts and then their 16 TF32 residuals.
+_NP, _NH, _KT, _KT32 = 448, 224, 64, 16
+#: Position p of a float32 K-tile row holds input column _K_PERM[p] of the
+#: K-tile: the wgmma A fragment's logical column 8 s + 4 h + t is what
+#: thread t of a quad builds as input column 4 t + 2 s + h, so that a thread's
+#: four columns are contiguous in u and v.
+_K_PERM = [4 * (p % 4) + 2 * (p // 8) + (p // 4) % 2 for p in range(_KT32)]
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 #: (max nodes in f32, max nodes in bf16, max hidden, max edge scalars) the
-#: built kernel takes.
+#: built kernels take.
 _LIMITS = (0, 0, 0, 0)
 #: id(w1) -> (weak reference, the data that was packed, version, packed).
 _PACK_CACHE: Dict[int, Tuple[weakref.ref, torch.Tensor, int,
                              torch.Tensor]] = {}
-#: Output of the last build: {"seconds": float, "log": str, "paths": dict}.
+#: Output of the last build: {"seconds": float, "logs": {source name: str},
+#: "paths": dict}.
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -93,22 +103,45 @@ def _chunk_swizzle(device) -> torch.Tensor:
     return torch.arange(8, device=device)[None, :] ^ rows
 
 
-def pack_w1(w1: torch.Tensor) -> torch.Tensor:
-    """W1 (H, H), torch layout [out][in], in the form the bf16 kernel reads.
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (nearest, ties away from zero), as
+    ``cvt.rna.tf32.f32`` does: the low 13 bits of each result are zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
-    Zero-padded to (_NP, HP) with HP = 64 ceil(H / 64), then laid out tile
-    by tile in the order the kernel consumes them: (half, K-tile, row,
-    swizzled chunk, 8 values), flat. Each tile is one contiguous block of
-    _NH x 128 bytes. Plain torch, on any device.
+
+def pack_w1(w1: torch.Tensor) -> torch.Tensor:
+    """W1 (H, H), torch layout [out][in], in the form the kernel of its type
+    reads, flat. Plain torch, on any device.
+
+    bfloat16: zero-padded to (_NP, HP) with HP = 64 ceil(H / 64), laid out
+    tile by tile in the order the kernel consumes them: (half, K-tile, row,
+    swizzled chunk, 8 values). float32: zero-padded to (_NP, 16 ceil(H /
+    16)) and split into hi = round_tf32(W1) and lo = round_tf32(W1 - hi);
+    a tile row is the K-tile's 16 hi values and then its 16 lo values, both
+    in the column order ``_K_PERM``, then (half, K-tile, row, swizzled
+    chunk, 4 values). Either way a tile is one contiguous block of _NH x 128
+    bytes.
     """
     H = w1.shape[0]
     if w1.shape != (H, H) or H > _NP:
         raise ValueError(f"pack_w1 takes a square W1 of at most {_NP} rows, "
                          f"got {tuple(w1.shape)}")
-    nkt = -(-H // _KT)
-    wp = w1.new_zeros(_NP, nkt * _KT)
-    wp[:H, :H] = w1
-    tiles = wp.view(2, _NH, nkt, 8, 8).permute(0, 2, 1, 3, 4)
+    if w1.dtype == torch.float32:
+        nkt = -(-H // _KT32)
+        wp = w1.new_zeros(_NP, nkt * _KT32)
+        wp[:H, :H] = w1
+        hi = round_tf32(wp)
+        lo = round_tf32(wp - hi)
+        perm = torch.tensor(_K_PERM, device=w1.device)
+        rows = torch.stack((hi.view(_NP, nkt, _KT32)[..., perm],
+                            lo.view(_NP, nkt, _KT32)[..., perm]), 2)
+        tiles = rows.view(2, _NH, nkt, 8, 4).permute(0, 2, 1, 3, 4)
+    else:
+        nkt = -(-H // _KT)
+        wp = w1.new_zeros(_NP, nkt * _KT)
+        wp[:H, :H] = w1
+        tiles = wp.view(2, _NH, nkt, 8, 8).permute(0, 2, 1, 3, 4)
     idx = _chunk_swizzle(w1.device)[None, None, :, :, None].expand_as(tiles)
     return torch.gather(tiles, 3, idx).contiguous().view(-1)
 
@@ -153,8 +186,8 @@ def build_kernel(verbose: bool = False) -> Dict[str, str]:
     are built side by side, one ``nvcc`` each. A library is named by its
     source's hash, so an edited source is rebuilt and a built one is reused.
     ``verbose`` rebuilds with ``-Xptxas -v`` (the per-kernel register and
-    spill report lands in ``BUILD_INFO``). Returns the libraries' paths by
-    source name; a failed build raises.
+    spill report lands in ``BUILD_INFO["logs"]`` by source name). Returns
+    the libraries' paths by source name; a failed build raises.
     """
     t0 = time.perf_counter()
     paths, running = {}, []
@@ -174,10 +207,10 @@ def build_kernel(verbose: bool = False) -> Dict[str, str]:
             cmd[1:1] = ["-Xptxas", "-v"]
         running.append((name, tmp, path, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = "", []
+    logs, failed = {}, []
     for name, tmp, path, proc in running:
         out = proc.communicate()[0]
-        log += out
+        logs[name] = out
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {name} ({proc.returncode}):\n{out}")
         else:
@@ -185,7 +218,7 @@ def build_kernel(verbose: bool = False) -> Dict[str, str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     BUILD_INFO.update(seconds=time.perf_counter() - t0 if running else 0.0,
-                      log=log, paths=paths)
+                      logs=logs, paths=paths)
     return paths
 
 
@@ -202,19 +235,19 @@ def _load() -> Dict[str, ctypes.CDLL]:
         bf.mlcg_cuda_error_string.argtypes = [ci]
         f32 = ctypes.CDLL(paths["edge_mlp_f32"])
         f32.mlcg_edge_mlp_f32.restype = ci
-        f32.mlcg_edge_mlp_f32.argtypes = [ci, ci, ci, ci, ci, vp, vp, vp, vp,
-                                          vp, ci, vp, vp, vp, vp, vp, cf, vp,
-                                          vp]
+        f32.mlcg_edge_mlp_f32.argtypes = bf.mlcg_edge_mlp.argtypes
         for fn in (bf.mlcg_edge_mlp_max_nodes, bf.mlcg_edge_mlp_max_hidden,
                    bf.mlcg_edge_mlp_max_edge_feats,
                    bf.mlcg_edge_mlp_w1_tile_bytes,
-                   f32.mlcg_edge_mlp_f32_max_nodes):
+                   f32.mlcg_edge_mlp_f32_max_nodes,
+                   f32.mlcg_edge_mlp_f32_w1_tile_bytes):
             fn.restype = ci
             fn.argtypes = []
         if (bf.mlcg_edge_mlp_w1_tile_bytes() != _NH * 128
+                or f32.mlcg_edge_mlp_f32_w1_tile_bytes() != _NH * 128
                 or bf.mlcg_edge_mlp_max_hidden() != _NP):
-            raise RuntimeError("the built kernel and pack_w1 disagree on the "
-                               "packed W1 layout")
+            raise RuntimeError("the built kernels and pack_w1 disagree on "
+                               "the packed W1 layout")
         _LIMITS = (f32.mlcg_edge_mlp_f32_max_nodes(),
                    bf.mlcg_edge_mlp_max_nodes(),
                    bf.mlcg_edge_mlp_max_hidden(),
@@ -270,8 +303,8 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
     All in one operand type. Returns (B, N, H) for "gcl", (B, N^2, 1) for
     "coord", float32 (float64 for float64 CPU inputs).
 
-    On the card float32 takes N <= 64 and bfloat16 N <= 128; both H <= 448
-    with H a multiple of 4 and E <= 4.
+    On the card both types take N <= 128, H <= 448 with H a multiple of 4
+    and E <= 4.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -315,25 +348,23 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
                              "b0, w1, b1 and wh")
     if E > 0 and w_e.stride(1) != 1:
         raise ValueError("w_e needs unit column stride")
-    for name, t in (("u", u), ("v", v), ("b0", b0), ("w1", w1)):
-        if t.data_ptr() % 8:
-            raise ValueError(f"{name} must be 8-byte aligned")
-    w1_arg = packed_w1(w1) if bf16 else w1
+    align = 8 if bf16 else 16
+    for name, t in (("u", u), ("v", v)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must be {align}-byte aligned")
+    w1p = packed_w1(w1)
     out_shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
     shared = (B, N, H, E, u.data_ptr(), v.data_ptr(), ef.data_ptr(),
               em.data_ptr() if mode == "gcl" else None, w_e.data_ptr(),
-              w_e.stride(0), b0.data_ptr(), w1_arg.data_ptr(), b1.data_ptr(),
+              w_e.stride(0), b0.data_ptr(), w1p.data_ptr(), b1.data_ptr(),
               wh.data_ptr(), bh.data_ptr() if bh is not None else None,
               float(norm), out.data_ptr())
     with torch.cuda.device(dev):   # the kernel launches on the current device
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if bf16:
-            rc = libs["bfloat16"].mlcg_edge_mlp(_MODES[mode], *shared, None,
-                                                stream)
-        else:
-            rc = libs["float32"].mlcg_edge_mlp_f32(_MODES[mode], *shared,
-                                                   stream)
+        entry = (libs["bfloat16"].mlcg_edge_mlp if bf16
+                 else libs["float32"].mlcg_edge_mlp_f32)
+        rc = entry(_MODES[mode], *shared, None, stream)
     if rc != 0:
         raise RuntimeError(
             "edge pass kernel failed: "

@@ -75,6 +75,17 @@ def test_edge_pass_f32_matches_jax_kernel_at_more_nodes(mode, n_nodes):
 
 
 @pytest.mark.parametrize("mode", ["gcl", "coord"])
+def test_edge_pass_f32_matches_jax_kernel_past_64_nodes(mode):
+    """N = 96, the range the float32 kernel takes on the card since it
+    tiles like the bf16 one (N <= 128): every graph has live nodes past
+    index 64, one fills the axis."""
+    out, ref, _ = _run_both(mode, jnp.float32, torch.float32, N=96,
+                            sizes=[96, 93, 70])
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
 def test_edge_pass_bf16_matches_jax_kernel(mode):
     out, ref, _ = _run_both(mode, jnp.bfloat16, torch.bfloat16)
     np.testing.assert_allclose(out, ref, atol=5e-2, rtol=5e-2)

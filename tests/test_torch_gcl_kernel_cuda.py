@@ -45,10 +45,11 @@ def _inputs(dtype, B=3, N=42, H=64, E=2, seed=0):
 
 
 # (B, N, H): nodes that do not fill a tile (42, 24), the full width (420),
-# more than 48 and more than 64 nodes. float32 takes N <= 64.
+# more than 48 and more than 64 nodes, and the most nodes a tile holds.
 BF16_SHAPES = [(3, 42, 64), (3, 40, 420), (5, 24, 420), (2, 64, 420),
                (1, 100, 64)]
-F32_SHAPES = [(3, 42, 64), (3, 40, 420), (2, 64, 420)]
+F32_SHAPES = [(3, 42, 64), (3, 40, 420), (2, 64, 420), (1, 100, 64),
+              (2, 128, 420)]
 
 
 @pytest.mark.parametrize("mode", ["gcl", "coord"])
@@ -93,12 +94,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         gk.fused_edge_pass(**dict(args, em=None), mode="gcl")
     with pytest.raises(ValueError):
         gk.fused_edge_pass(**dict(args, v=args["v"].cpu()), mode="gcl")
-    # bfloat16 takes at most 128 nodes, float32 at most 64, both H <= 448
+    # both types take at most 128 nodes and H <= 448
     with pytest.raises(ValueError, match="N <= 128"):
         gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=130, H=64)[0],
                            mode="gcl")
-    with pytest.raises(ValueError, match="N <= 64"):
-        gk.fused_edge_pass(**_inputs(torch.float32, B=1, N=72, H=64)[0],
+    with pytest.raises(ValueError, match="N <= 128"):
+        gk.fused_edge_pass(**_inputs(torch.float32, B=1, N=130, H=64)[0],
                            mode="gcl")
     with pytest.raises(ValueError, match="H <= 448"):
         gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=8, H=452)[0],
@@ -106,10 +107,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     assert gk.LAUNCHES == {"gcl": 0, "coord": 0}
 
 
-def test_w1_is_packed_once_per_weight(card):
+def _packs_once(dtype, atol, rtol):
     """The packed W1 is cached per weight tensor; an in-place change packs
     again, and the kernel then follows the new weight."""
-    args, _ = _inputs(torch.bfloat16, B=2, N=32, H=420)
+    args, _ = _inputs(dtype, B=2, N=32, H=420)
     gk.reset_pack_count()
     first = gk.fused_edge_pass(**args, mode="gcl")
     second = gk.fused_edge_pass(**args, mode="gcl")
@@ -118,5 +119,14 @@ def test_w1_is_packed_once_per_weight(card):
     third = gk.fused_edge_pass(**args, mode="gcl")
     ref = gk.fused_edge_pass_reference(**args, mode="gcl").float()
     assert gk.PACKS == 2
-    torch.testing.assert_close(third, ref, atol=5e-3, rtol=1e-2)
+    torch.testing.assert_close(third, ref, atol=atol, rtol=rtol)
     assert (third - first).abs().max().item() > 1e-3
+
+
+def test_w1_is_packed_once_per_weight(card):
+    _packs_once(torch.bfloat16, 5e-3, 1e-2)
+
+
+def test_f32_w1_is_packed_once_per_weight(card):
+    """The float32 kernel's split W1 (TF32 parts and residuals) likewise."""
+    _packs_once(torch.float32, 1e-5, 1e-4)
