@@ -5,8 +5,10 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 sm_90a):
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # plus the kernel's phase clocks and
+    python3 chip_smoke.py --profile   # plus the kernels' phase clocks and
                                       # one request under torch.profiler
+    python3 chip_smoke.py --compare-train DIR   # only the backward call and
+        # the train step of the checkout in DIR and of this one, in turns
 
 It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
 csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32,
@@ -70,8 +72,11 @@ seed, in bf16 (the default) and in float32. Phases:
     to both bars and each ill-conditioned one reported;
 13. training (EGNN 420 x 9, float32, B = 64, N = 39): the float32 backward
     kernel (``edge_mlp_bwd_f32.cu``) in both modes against the plain
-    backward at (64, 39), (5, 40) and (8, 128), with kernel, plain and
-    library times beside the bound; a corpus of 136 molecules made on the
+    backward at (64, 39), (5, 40) and (8, 128), a second call bit-equal to
+    the first, with kernel, plain and library (the call's three products)
+    times beside the bound; the split of one (64, 39) call by device kernel
+    under ``torch.profiler`` (with ``--profile`` also the kernel's phase
+    clocks); a corpus of 136 molecules made on the
     card by ``perturb_and_relax`` from the reference; one ``make_train_step``
     step through the kernels against the same step through the plain
     version (same weights, same draws: losses within 1e-5, every
@@ -226,17 +231,21 @@ def edge_pass_bound(B, N, H, E, dtype_name, mode, backward=False):
     would sit below what the kernel reaches, and its share would read over
     100%. Bytes: each input read once, the float32 output written once.
 
-    ``backward``: the float32 backward kernel. Operations: its two products
-    in the edge chain (the recompute s0 W1^T and dpre1 W1), 2 x 2 B N^2
-    H^2, at the 3xTF32 rate; bytes: the inputs and the upstream gradient
-    read once, du, dv, de, the weight sums and the (B N^2, H) s0 and dpre1
-    written once."""
+    ``backward``: the float32 backward call (``fused_edge_pass_backward``:
+    the kernel and its wrapper's dW1 product). Operations: its three
+    products of the edge chain, the recompute s0 W1^T, dpre1 W1 and dW1 =
+    dpre1^T s0, 3 x 2 B N^2 H^2, at the 3xTF32 rate; bytes: the call's
+    inputs (u, v, the edge scalars, the weights, the upstream gradient and
+    in gcl the edge mask) read once and its outputs (du, dv, de and the
+    weight gradients) written once; the s0 and dpre1 it passes from the
+    kernel to the product are intermediates and not counted."""
     if backward:
         edges = B * N * N
-        ops = 2.0 * 2 * edges * H * H
+        ops = 3 * 2.0 * edges * H * H
         n_in = (2 * B * N * H + edges * E + H * E + H * H + 3 * H
                 + (edges + 1 + B * N * H if mode == "gcl" else edges))
-        n_out = 2 * B * N * H + edges * E + 2 * edges * H + H * H + H * E + 4 * H
+        n_out = (2 * B * N * H + edges * E + H * E + H * H + 3 * H
+                 + (1 if mode == "gcl" else 0))
         t_ops = ops / PEAK_OPS["float32"]
         t_bytes = (n_in + n_out) * 4 / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -1258,9 +1267,10 @@ BWD_ATOL, BWD_RTOL, BWD_SUM_RTOL = 1e-5, 1e-4, 1e-4
 def backward_kernel_phase(torch, gk, B, N, sizes, H=420):
     """Both modes of the float32 backward kernel at (B, N, H) against the
     plain backward (autograd of the plain forward) on the same inputs and
-    upstream gradient, then timed beside the plain backward, two
-    ``torch.matmul`` of the inner (B N^2, H) x (H, H) product and the
-    bound. Returns one record per mode."""
+    upstream gradient, a second call bit-equal to the first, then timed
+    beside the plain backward, the call's three products as
+    ``torch.matmul`` (the library) and the bound. Returns one record per
+    mode."""
     out = []
     a, _ = edge_inputs(torch, B, N, H, torch.float32, sizes, seed=B * N + 1)
     g = torch.Generator().manual_seed(B + N)
@@ -1302,16 +1312,25 @@ def backward_kernel_phase(torch, gk, B, N, sizes, H=420):
                       f"plain in {name}: {rec}")
         check(launches == launch_counts(**{f"{mode}_bwd": 1}),
               f"backward launches {launches}")
+        again = call()
+        torch.cuda.synchronize()
+        rec["bit_equal_twice"] = all(
+            (x is None and y is None) or torch.equal(x, y)
+            for x, y in zip(got, again))
+        check(rec["bit_equal_twice"], f"two backward calls differ: {rec}")
+        del again
         rec["max_abs_err"] = worst_elem
         rec["weight_sums_max_rel_err"] = worst_sum
         del got, ref
         x = torch.randn(B * N * N, H, device="cuda")
+        y = torch.randn(B * N * N, H, device="cuda")
         w1 = args["w1"]
         rec["kernel_ms"] = cuda_ms(torch, call, iters=10)
         rec["plain_ms"] = cuda_ms(torch, plain, iters=3)
-        rec["library_ms"] = cuda_ms(torch, lambda: (x @ w1.t(), x @ w1),
-                                    iters=10)
-        del x
+        # the call's three products: s0 W1^T, dpre1 W1, dW1 = dpre1^T s0
+        rec["library_ms"] = cuda_ms(
+            torch, lambda: (x @ w1.t(), y @ w1, y.t() @ x), iters=10)
+        del x, y
         bound_ms, bound_by = edge_pass_bound(B, N, H, 2, "float32", mode,
                                              backward=True)
         rec["bound_ms"], rec["bound_by"] = bound_ms, bound_by
@@ -1319,6 +1338,134 @@ def backward_kernel_phase(torch, gk, B, N, sizes, H=420):
         log(f"[train] {json.dumps(rec)}")
         out.append(rec)
     return out
+
+
+def backward_split(torch, gk, B, N, sizes, H=420, calls=5):
+    """Where one float32 backward call (``fused_edge_pass_backward``) spends
+    its time, per mode at (B, N, H): ``calls`` warm calls under
+    ``torch.profiler``, each device kernel's ms a call (the backward
+    kernel's own, the wrapper's ``dW1`` matmul, its reductions and
+    fills), the host's ms a call in the wrapper's allocations
+    (``aten::empty`` / ``aten::zeros``), and the call's CUDA-event time
+    beside them. Returns one record per mode."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, _ = edge_inputs(torch, B, N, H, torch.float32, sizes, seed=B * N + 1)
+    g = torch.Generator().manual_seed(B + N)
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    out = []
+    for mode in ("gcl", "coord"):
+        args = dict(a)
+        if mode == "coord":
+            args["em"], args["bh"] = None, None
+        shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
+        up = torch.randn(*shape, generator=g).cuda()
+        call = lambda: gk.fused_edge_pass_backward(**args, g=up, mode=mode)
+        call_ms = cuda_ms(torch, call, iters=calls)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = sorted((e for e in events if e.device_type == cuda
+                          and dev_us(e) > 0), key=dev_us, reverse=True)
+        alloc_us = sum(e.self_cpu_time_total for e in events
+                       if e.key in ("aten::empty", "aten::zeros"))
+        # The trace may miss a call's kernels (after an earlier trace in the
+        # process it has dropped the first call's): count the calls it saw
+        # by launches of the backward kernel, the one that takes longest.
+        seen = kernels[0].count if kernels else calls
+        ms, launches = {}, {}
+        for e in kernels:   # names cut short, so two kernels may share one
+            name = e.key[:90]
+            ms[name] = ms.get(name, 0.0) + dev_us(e) / 1e3 / seen
+            launches[name] = launches.get(name, 0) + e.count / seen
+        rec = {"backward_split": {"B": B, "N": N, "H": H, "mode": mode,
+                                  "calls": calls, "calls_traced": seen},
+               "call_ms": call_ms, "device_ms_a_call": ms,
+               "launches_a_call": launches,
+               "device_ms_a_call_total": sum(dev_us(e) for e in kernels)
+               / 1e3 / seen,
+               "host_alloc_ms_a_call": alloc_us / 1e3 / calls}
+        log("[train] " + json.dumps(rec))
+        out.append(rec)
+    return out
+
+
+BWD_PHASES = ["tile_rows", "recompute_half0", "epilogue1a_half0",
+              "recompute_half1", "epilogue1a_half1", "epilogue1b",
+              "product2_half0", "epilogue2_half0", "product2_half1",
+              "epilogue2_half1", "column_sums_half0", "column_sums_half1"]
+
+
+def backward_phase_clocks(torch, gk, B, N, sizes, H=420):
+    """Where a block of the float32 backward kernel spends its clocks: one
+    launch per mode through the library's C entry with its clock buffer,
+    the other outputs allocated as the wrapper allocates them; its
+    gradients are held bit-equal to the wrapper's. The product phases
+    include building their A operand; "epilogue1a" is storing a half's
+    pre1 (gcl) or that half's epilogue (coord), "epilogue1b" gcl's epilogue
+    of both halves. Only with ``--profile``."""
+    import ctypes
+
+    lib = ctypes.CDLL(gk.build_kernel()["edge_mlp_bwd_f32"])
+    lib.mlcg_edge_mlp_bwd_f32.restype = ctypes.c_int
+    lib.mlcg_edge_mlp_bwd_f32.argtypes = (
+        gk._load()["backward"].mlcg_edge_mlp_bwd_f32.argtypes)
+    lib.mlcg_edge_mlp_bwd_f32_prof_slots.restype = ctypes.c_int
+    slots = lib.mlcg_edge_mlp_bwd_f32_prof_slots()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    a, _ = edge_inputs(torch, B, N, H, torch.float32, sizes, seed=B * N + 1)
+    w1p = gk.packed_w1(a["w1"], backward=True)
+    g = torch.Generator().manual_seed(B + N)
+    M, E = B * N * N, 2
+    f32 = dict(dtype=torch.float32, device="cuda")
+    for mode in ("gcl", "coord"):
+        gcl = mode == "gcl"
+        args = dict(a)
+        if not gcl:
+            args["em"], args["bh"] = None, None
+        up = torch.randn(*((B, N, H) if gcl else (B, N * N, 1)),
+                         generator=g).cuda()
+        raw = dict(s0=torch.empty(M, H + 4, **f32),
+                   dpre1=torch.empty(M, H, **f32),
+                   du=torch.empty(B, N, H, **f32),
+                   dvp=torch.empty(B, gk.backward_tiles(N)[1], N, H, **f32),
+                   de=torch.empty(B, N * N, E, **f32),
+                   dwe=torch.empty(B, N, E, H, **f32),
+                   dhead=torch.empty(M, **f32),
+                   part=torch.zeros(sms, 8, 448, **f32))
+        clocks = torch.zeros(sms, slots, dtype=torch.int64, device="cuda")
+        rc = lib.mlcg_edge_mlp_bwd_f32(
+            0 if gcl else 1, B, N, H, E, a["u"].data_ptr(),
+            a["v"].data_ptr(), a["ef"].data_ptr(),
+            a["em"].data_ptr() if gcl else None, a["w_e"].data_ptr(),
+            a["w_e"].stride(0), a["b0"].data_ptr(), w1p[0].data_ptr(),
+            w1p[1].data_ptr(), a["b1"].data_ptr(), a["wh"].data_ptr(),
+            a["bh"].data_ptr() if gcl else None, 100.0, up.data_ptr(),
+            *(t.data_ptr() for t in raw.values()), sms, clocks.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        check(rc == 0, f"clocked backward launch failed with CUDA error {rc}")
+        got = gk._reduce_backward(raw, gcl)
+        want = gk.fused_edge_pass_backward(**args, g=up, mode=mode)
+        check(all((x is None and y is None) or torch.equal(x, y)
+                  for x, y in zip(got, want)),
+              "the clocked backward launch and the wrapper's disagree")
+        per_block = clocks.sum(0).double() / clocks.shape[0]
+        total = per_block.sum().item()
+        log("[profile] " + json.dumps({
+            "backward_phase_clocks": {"B": B, "N": N, "H": H, "mode": mode},
+            "clocks_per_block": {n: int(c) for n, c in
+                                 zip(BWD_PHASES, per_block.tolist())},
+            "share": {n: round(c / total, 4) for n, c in
+                      zip(BWD_PHASES, per_block.tolist())}}))
 
 
 def training_corpus(torch, reference, n_copies=135):
@@ -1611,6 +1758,49 @@ def bond_training_phase(torch, ds, steps=20):
     check(hist[-1] < hist[0], f"the bond loss did not drop: {hist}")
 
 
+# Run by ``--compare-train DIR`` in each of two checkouts, in a process of
+# its own: that checkout's backward call at the training shape and its
+# train step (phase 13), as one JSON line.
+_TRAIN_RUN = r"""
+import json, sys, torch
+sys.argv = ["chip_smoke.py"]
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from ml_conformer_generator_tpu_torch.chem.mol import Molecule
+from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {r["mode"] + "_bwd_ms": r["kernel_ms"] for r in cs.backward_kernel_phase(
+    torch, gk, cs.TRAIN_B, cs.TRAIN_N, (15, 39))}
+ref = Molecule([z for z, *_ in cs._REFERENCE], [x for _, *x in cs._REFERENCE], [])
+rec = cs.train_step_phase(torch, gk, cs.training_corpus(torch, ref))
+out.update({k: rec[k] for k in (
+    "step_s_median_remat", "molecules_per_s_remat", "step_s_median_no_remat",
+    "peak_mem_gb_remat", "peak_mem_gb_no_remat", "split_s_median",
+    "grad_rel_norm_max")})
+print("TRAIN_RUN " + json.dumps(out), flush=True)
+"""
+
+
+def compare_train(other):
+    """The backward call at the training shape and the train step of the
+    checkout at ``other`` (the parent's, say) and of this one, in turns:
+    other, this, this, other, each in a process of its own that imports
+    its own package. Prints one JSON line a run; returns non-zero if one
+    failed."""
+    rc = 0
+    for name, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                       ("other", other)):
+        p = subprocess.run([sys.executable, "-c", _TRAIN_RUN], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        line = [l for l in p.stdout.splitlines() if l.startswith("TRAIN_RUN ")]
+        if p.returncode or not line:
+            log(f"[compare] {name} {root} failed:\n{(p.stdout + p.stderr)[-3000:]}")
+            rc = 1
+            continue
+        log(f"[compare] {json.dumps(dict(json.loads(line[0][10:]), run=name))}")
+    return rc
+
+
 def main() -> int:
     import torch
 
@@ -1622,6 +1812,9 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
+    if "--compare-train" in sys.argv[1:]:
+        return compare_train(
+            os.path.abspath(sys.argv[sys.argv.index("--compare-train") + 1]))
 
     # -- 1. environment ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1887,6 +2080,9 @@ def main() -> int:
     for B, N, sizes in ((TRAIN_B, TRAIN_N, (15, 39)), (5, 40, (15, 39)),
                         (8, 128, (100, 128))):
         bwd += backward_kernel_phase(torch, gk, B, N, sizes)
+    split = backward_split(torch, gk, TRAIN_B, TRAIN_N, (15, 39))
+    if "--profile" in sys.argv[1:]:
+        backward_phase_clocks(torch, gk, TRAIN_B, TRAIN_N, (15, 39))
     corpus = training_corpus(torch, reference)
     train_rec = train_step_phase(torch, gk, corpus)
     train_loop_phase(torch, gk, corpus, reference, workdir)
@@ -1931,6 +2127,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "float32", "shape": [r["B"], r["N"], r["H"]],
+            "bit_equal_twice": r["bit_equal_twice"],
+            "call_device_ms": next(x["device_ms_a_call"] for x in split
+                                   if x["backward_split"]["mode"] == mode),
             "training_step_launches": train_launches[f"{mode}_bwd"]})
     check(all(k["launches"] > 0 for k in kernels), "a kernel never ran")
     log(json.dumps({"kernels": kernels}))

@@ -84,6 +84,9 @@ _NP, _NH, _KT, _KT32 = 448, 224, 64, 16
 #: thread t of a quad builds as input column 4 t + 2 s + h, so that a thread's
 #: four columns are contiguous in u and v.
 _K_PERM = [4 * (p % 4) + 2 * (p // 8) + (p // 4) % 2 for p in range(_KT32)]
+#: The float32 backward kernel's tiles (edge rows) and consumer warps, each
+#: warp with its own row of the dwh sums.
+_BWD_ROWS, _BWD_WARPS = 128, 8
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 #: (max nodes in f32, max nodes in bf16, max hidden, max edge scalars) the
@@ -158,25 +161,11 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
     return torch.gather(tiles, 3, idx).contiguous().view(-1)
 
 
-def pack_w1_bwd(w1: torch.Tensor) -> torch.Tensor:
-    """float32 W1 (H, H), torch layout [out][in], in the two layouts the
-    backward kernel reads, flat: W1^T and then W1, each zero-padded to
-    (_NP, _NP). Both are [reduction row][output column] operands of a
-    product: s0 . W1^T (the recompute) reads W1^T, dpre1 . W1 reads W1."""
-    H = w1.shape[0]
-    if w1.shape != (H, H) or H > _NP or w1.dtype != torch.float32:
-        raise ValueError(f"pack_w1_bwd takes a square float32 W1 of at most "
-                         f"{_NP} rows, got {tuple(w1.shape)} {w1.dtype}")
-    out = w1.new_zeros(2, _NP, _NP)
-    out[0, :H, :H] = w1.t()
-    out[1, :H, :H] = w1
-    return out.view(-1)
-
-
 def packed_w1(w1: torch.Tensor, backward: bool = False):
-    """The packed form of ``w1``, made once per weight: the forward's
-    layout, or with ``backward`` the pair (forward's, backward's), made in
-    one pack.
+    """The packed form of ``w1``, made once per weight: ``pack_w1(w1)``, or
+    with ``backward`` the pair (``pack_w1(w1)``, ``pack_w1(w1.t())``) that
+    the float32 backward kernel reads (its second product, dpre1 . W1,
+    takes W1^T as its [out][in] operand), made in one pack.
 
     The cache entry belongs to the tensor object and is valid while its data
     pointer and version counter stand: an in-place update (an optimizer
@@ -195,11 +184,19 @@ def packed_w1(w1: torch.Tensor, backward: bool = False):
         return (hit[3], hit[4]) if backward else hit[3]
     source = w1.detach()
     packed = pack_w1(source)
-    packed_bwd = pack_w1_bwd(source) if backward else None
+    packed_bwd = pack_w1(source.t()) if backward else None
     PACKS += 1
     ref = weakref.ref(w1, lambda _, key=key: _PACK_CACHE.pop(key, None))
     _PACK_CACHE[key] = (ref, source, w1._version, packed, packed_bwd)
     return (packed, packed_bwd) if backward else packed
+
+
+def backward_tiles(N: int) -> Tuple[int, int]:
+    """(target nodes a tile, tiles a graph) of the float32 backward kernel
+    for graphs of N nodes: whole nodes of one graph, at most 128 edge rows
+    a tile. The dv partials it writes are (B, tiles a graph, N, H)."""
+    ti = _BWD_ROWS // N if N <= _BWD_ROWS // 2 else 1
+    return ti, -(-N // ti)
 
 
 def _nvcc() -> str:
@@ -283,17 +280,23 @@ def _load() -> Dict[str, ctypes.CDLL]:
         bwd = ctypes.CDLL(paths["edge_mlp_bwd_f32"])
         bwd.mlcg_edge_mlp_bwd_f32.restype = ci
         bwd.mlcg_edge_mlp_bwd_f32.argtypes = (
-            [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, cf]
-            + [vp] * 8 + [ci, vp])
-        for fn in (bwd.mlcg_edge_mlp_bwd_f32_part_floats,
-                   bwd.mlcg_edge_mlp_bwd_f32_padded_width):
+            [ci, ci, ci, ci, ci, vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp,
+             vp, cf] + [vp] * 9 + [ci, vp, vp])
+        for fn in (bwd.mlcg_edge_mlp_bwd_f32_max_nodes,
+                   bwd.mlcg_edge_mlp_bwd_f32_w1_tile_bytes,
+                   bwd.mlcg_edge_mlp_bwd_f32_part_floats):
             fn.restype = ci
             fn.argtypes = []
-        bwd.mlcg_edge_mlp_bwd_f32_part_offset.restype = ci
-        bwd.mlcg_edge_mlp_bwd_f32_part_offset.argtypes = [ci]
-        if bwd.mlcg_edge_mlp_bwd_f32_padded_width() != _NP:
-            raise RuntimeError("the built backward kernel and pack_w1_bwd "
-                               "disagree on the padded width")
+        bwd.mlcg_edge_mlp_bwd_f32_tiles_per_graph.restype = ci
+        bwd.mlcg_edge_mlp_bwd_f32_tiles_per_graph.argtypes = [ci]
+        max_n = bwd.mlcg_edge_mlp_bwd_f32_max_nodes()
+        if (bwd.mlcg_edge_mlp_bwd_f32_w1_tile_bytes() != _NH * 128
+                or bwd.mlcg_edge_mlp_bwd_f32_part_floats() != _BWD_WARPS * _NP
+                or max_n != f32.mlcg_edge_mlp_f32_max_nodes()
+                or any(bwd.mlcg_edge_mlp_bwd_f32_tiles_per_graph(n)
+                       != backward_tiles(n)[1] for n in range(1, max_n + 1))):
+            raise RuntimeError("the built backward kernel and this wrapper "
+                               "disagree on its layouts")
         _LIMITS = (f32.mlcg_edge_mlp_f32_max_nodes(),
                    bf.mlcg_edge_mlp_max_nodes(),
                    bf.mlcg_edge_mlp_max_hidden(),
@@ -469,9 +472,9 @@ class _EdgePassFunction(torch.autograd.Function):
             # per weight and step. The backward takes its pack from here:
             # the W1 it gets back from autograd (under remat a detached
             # alias) is not the tensor object the cache knows.
-            w1p, ctx.w1p = packed_w1(w1, backward=True)
+            ctx.w1p = packed_w1(w1, backward=True)
             out = _launch_forward(u, v, ef, em, w_e, b0, w1, b1, wh, bh,
-                                  mode=mode, norm=norm, w1p=w1p)
+                                  mode=mode, norm=norm, w1p=ctx.w1p[0])
         ctx.save_for_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh)
         ctx.mode, ctx.norm = mode, norm
         return out
@@ -518,8 +521,10 @@ def fused_edge_pass_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *,
     :func:`fused_edge_pass_backward_reference`; a float32 CUDA tensor
     launches the backward kernel (``csrc/edge_mlp_bwd_f32.cu``), which
     writes the recomputed first-layer activations s0 and dpre1, (B N^2, H)
-    each, and dW1 = dpre1^T s0 is one ``torch.matmul`` (a library product,
-    as XLA's in the JAX package). Other CUDA types raise.
+    each, and [dW1 | db1] = dpre1^T [s0 | 1] is one ``torch.matmul`` (a
+    library product, as XLA's in the JAX package); the kernel's per-tile
+    and per-block partials are added by :func:`_reduce_backward`. Other
+    CUDA types raise.
     """
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -535,13 +540,14 @@ def fused_edge_pass_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *,
             "M13b, the bf16 backward kernel)")
     return _launch_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g,
                             mode=mode, norm=norm,
-                            w1p=packed_w1(w1, backward=True)[1])
+                            w1p=packed_w1(w1, backward=True))
 
 
 def _launch_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *, mode,
                      norm, w1p):
     """One launch of the float32 backward kernel on CUDA tensors, with
-    ``w1p`` the backward's pack of W1 (:func:`pack_w1_bwd`)."""
+    ``w1p`` the pair (``pack_w1(w1)``, ``pack_w1(w1.t())``), then the
+    reduction of what it wrote (:func:`_reduce_backward`)."""
     B, N, H, E = _check_operands(u, v, ef, em, w_e, b0, w1, b1, wh, bh, mode)
     dev = u.device
     g_shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
@@ -549,41 +555,53 @@ def _launch_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *, mode,
         raise ValueError(f"g has shape {tuple(g.shape)}, expected {g_shape}")
     g = g.to(torch.float32).contiguous()
     lib = _load()["backward"]
+    M = B * N * N
     f32 = dict(dtype=torch.float32, device=dev)
-    s0 = torch.empty(B * N * N, H, **f32)
-    dpre1 = torch.empty(B * N * N, H, **f32)
-    dpre0 = torch.empty(B * N * N, H, **f32)
-    du = torch.empty(B, N, H, **f32)
-    dv = torch.empty(B, N, H, **f32)
-    de = torch.empty(B, N * N, E, **f32)
     nblk = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty(nblk, lib.mlcg_edge_mlp_bwd_f32_part_floats(), **f32)
+    raw = dict(s0=torch.empty(M, H + 4, **f32), dpre1=torch.empty(M, H, **f32),
+               du=torch.empty(B, N, H, **f32),
+               dvp=torch.empty(B, backward_tiles(N)[1], N, H, **f32),
+               de=torch.empty(B, N * N, E, **f32),
+               dwe=torch.empty(B, N, E, H, **f32), dhead=torch.empty(M, **f32),
+               part=torch.zeros(nblk, _BWD_WARPS, _NP, **f32))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.mlcg_edge_mlp_bwd_f32(
             _MODES[mode], B, N, H, E, u.data_ptr(), v.data_ptr(),
             ef.data_ptr(), em.data_ptr() if mode == "gcl" else None,
-            w_e.data_ptr(), w_e.stride(0), b0.data_ptr(), w1p.data_ptr(),
-            b1.data_ptr(), wh.data_ptr(),
+            w_e.data_ptr(), w_e.stride(0), b0.data_ptr(), w1p[0].data_ptr(),
+            w1p[1].data_ptr(), b1.data_ptr(), wh.data_ptr(),
             bh.data_ptr() if bh is not None else None, float(norm),
-            g.data_ptr(), s0.data_ptr(), dpre1.data_ptr(), dpre0.data_ptr(),
-            du.data_ptr(), dv.data_ptr(), de.data_ptr(), part.data_ptr(),
-            nblk, stream)
+            g.data_ptr(), *(t.data_ptr() for t in raw.values()), nblk, None,
+            stream)
     if rc != 0:
         raise RuntimeError(
             "edge pass backward kernel failed: "
             + _load()["bfloat16"].mlcg_cuda_error_string(rc).decode())
     LAUNCHES[f"{mode}_bwd"] += 1
-    del dpre0
-    dw1 = torch.matmul(dpre1.t(), s0)
-    sums = part.sum(0)
-    off = [lib.mlcg_edge_mlp_bwd_f32_part_offset(i) for i in range(5)]
-    db1 = sums[off[0]:off[0] + H]
-    dwh = sums[off[1]:off[1] + H]
-    db0 = sums[off[2]:off[2] + H]
-    dw_e = sums[off[3]:off[4]].view(-1, _NP)[:E, :H].t()
-    dbh = sums[off[4]:off[4] + 1] if bh is not None else None
-    return du, dv, de, dw_e, db0, dw1, db1, dwh, dbh
+    return _reduce_backward(raw, bh is not None)
+
+
+def _reduce_backward(raw, has_bh: bool):
+    """The gradients (du, dv, de, dw_e, db0, dw1, db1, dwh, dbh) from what the
+    backward kernel wrote, ``raw``: s0 (B N^2, H + 4) with a column of ones
+    after its H columns, dpre1 (B N^2, H), du (B, N, H), the dv partials
+    dvp (B, tiles a graph, N, H), de (B, N^2, E), dwe (B, N, E, H) with
+    sum_j dpre0_ij e_ij, dhead (B N^2,) and the dwh sums by block and warp,
+    part (blocks, warps, 448). [dW1 | db1] = dpre1^T [s0 | 1] is one library
+    product; every other sum is over a fixed shape, so it is taken in a
+    fixed order. Plain torch, on any device."""
+    H = raw["du"].shape[-1]
+    ext = torch.matmul(raw["dpre1"].t(), raw["s0"])           # (H, H + 4)
+    dw1 = ext[:, :H].contiguous()
+    db1 = ext[:, H].contiguous()
+    du = raw["du"]
+    dv = raw["dvp"].sum(1)
+    dw_e = raw["dwe"].sum((0, 1)).t()
+    db0 = du.sum((0, 1))
+    dwh = raw["part"].reshape(-1, raw["part"].shape[-1]).sum(0)[:H]
+    dbh = raw["dhead"].sum().reshape(1) if has_bh else None
+    return du, dv, raw["de"], dw_e, db0, dw1, db1, dwh, dbh
 
 
 def _split_first_layer(lin0, h):

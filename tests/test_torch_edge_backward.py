@@ -6,7 +6,9 @@ and masked j-sum of ``gcl_forward`` (mode "gcl") or the head of
 ``coord_update_forward`` (mode "coord"); it takes h and the first layer's
 full weight, so the port's u = h W_src, v = h W_tgt are chained through by
 hand. float64 holds every gradient to 1e-10. The backward kernel itself
-runs only on the card (``tests/test_torch_gcl_kernel_cuda.py``).
+runs only on the card (``tests/test_torch_gcl_kernel_cuda.py``); here its
+pack of W1 and the wrapper's reduction of what it writes are held, the
+latter fed a plain-torch emulation of its outputs.
 """
 
 import jax
@@ -17,6 +19,7 @@ import torch
 
 from ml_conformer_generator_tpu.models import egnn as jegnn
 from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
+from test_torch_edge_pack_f32 import _unpack
 
 NORM = 100.0
 NAMES = ["du", "dv", "de", "dw_e", "db0", "dw1", "db1", "dwh", "dbh"]
@@ -159,14 +162,22 @@ def test_backward_reference_returns_the_wrappers_outputs():
 
 
 def test_pack_w1_bwd_layouts():
-    """The backward's pack: W1^T then W1, each zero-padded to 448 x 448."""
-    w1 = torch.randn(20, 20)
-    p = gk.pack_w1_bwd(w1).view(2, 448, 448)
-    assert torch.equal(p[0, :20, :20], w1.t())
-    assert torch.equal(p[1, :20, :20], w1)
-    assert p[:, 20:].abs().max() == 0 and p[:, :, 20:].abs().max() == 0
+    """The backward's pack of W1 is the forward's layout of W1^T (the
+    second product's [out][in] operand): unpacked, its TF32 parts and
+    residuals are W1^T's bit for bit, zero-padded."""
+    H = 20
+    w1 = torch.randn(H, H)
+    fwd, bwd = gk.packed_w1(w1, backward=True)
+    assert torch.equal(fwd, gk.pack_w1(w1))
+    assert bwd.shape == fwd.shape
+    hi, lo = _unpack(bwd, H)
+    want_hi = gk.round_tf32(w1.t())
+    assert torch.equal(hi[:H, :H], want_hi)
+    assert torch.equal(lo[:H, :H], gk.round_tf32(w1.t() - want_hi))
+    assert hi[H:].abs().max() == 0 and hi[:, H:].abs().max() == 0
+    assert lo[H:].abs().max() == 0 and lo[:, H:].abs().max() == 0
     with pytest.raises(ValueError):
-        gk.pack_w1_bwd(w1.double())
+        gk.pack_w1(torch.randn(H, H + 1))
 
 
 def test_packed_w1_backward_layouts_come_in_the_same_pack():
@@ -182,9 +193,91 @@ def test_packed_w1_backward_layouts_come_in_the_same_pack():
         w1.add_(1.0)
     fwd2, bwd2 = gk.packed_w1(w1, backward=True)
     assert gk.PACKS == 2
-    assert torch.equal(bwd2.view(2, 448, 448)[1, :16, :16], w1)
+    assert torch.equal(fwd2, gk.pack_w1(w1))
+    assert torch.equal(bwd2, gk.pack_w1(w1.t()))
     # a forward-only pack is extended, not served, when the backward asks
     w2 = torch.randn(16, 16)
     gk.packed_w1(w2)
     gk.packed_w1(w2, backward=True)
     assert gk.PACKS == 4
+
+
+def test_backward_tiles_hold_whole_nodes():
+    """The backward kernel's tiles: whole target nodes of one graph, at most
+    128 edge rows, as few tiles a graph as that allows."""
+    for n in range(1, 129):
+        ti, tpg = gk.backward_tiles(n)
+        assert ti * n <= 128 and ti * tpg >= n > ti * (tpg - 1)
+    assert gk.backward_tiles(39) == (3, 13)
+    assert gk.backward_tiles(40) == (3, 14)
+    assert gk.backward_tiles(128) == (1, 128)
+
+
+def _kernel_outputs(args, g, mode, blocks=3, warps=8):
+    """What the backward kernel writes (``gk._reduce_backward``'s input),
+    made in plain torch in its layout: s0 with its column of ones, dpre1,
+    du, the dv partials by tile of whole target nodes, de, sum_j dpre0 e per
+    target node, dhead per edge, and the dwh sums spread over blocks and
+    warps (edges dealt round the rows of ``part``)."""
+    u, v, ef, w_e, w1, wh = (args[k] for k in
+                             ("u", "v", "ef", "w_e", "w1", "wh"))
+    B, N, H = u.shape
+    E = ef.shape[-1]
+    e = ef.reshape(B, N, N, E)
+    dsilu = lambda x: torch.sigmoid(x) * (1 + x * (1 - torch.sigmoid(x)))
+    pre0 = u[:, :, None] + v[:, None] + e @ w_e.t() + args["b0"]
+    s0 = torch.nn.functional.silu(pre0)
+    pre1 = s0 @ w1.t() + args["b1"]
+    m = torch.nn.functional.silu(pre1)
+    if mode == "gcl":
+        gate = torch.sigmoid(m @ wh + args["bh"])
+        scale = args["em"].reshape(B, N, N) / NORM
+        gi = g[:, :, None, :]
+        dhead = (gi * m).sum(-1) * scale * gate * (1 - gate)
+        dm = gi * (scale * gate)[..., None] + dhead[..., None] * wh
+    else:
+        dhead = g.reshape(B, N, N)
+        dm = dhead[..., None] * wh
+    dpre1 = dm * dsilu(pre1)
+    dpre0 = (dpre1 @ w1) * dsilu(pre0)
+    ti, tpg = gk.backward_tiles(N)
+    dvp = torch.stack([dpre0[:, t * ti:(t + 1) * ti].sum(1)
+                       for t in range(tpg)], 1)
+    M = B * N * N
+    part = torch.zeros(blocks * warps, 448, dtype=u.dtype)
+    rows = (dhead[..., None] * m).reshape(M, H)
+    for k in range(blocks * warps):
+        part[k, :H] = rows[k::blocks * warps].sum(0)
+    s0_ext = torch.zeros(M, H + 4, dtype=u.dtype)
+    s0_ext[:, :H] = s0.reshape(M, H)
+    s0_ext[:, H] = 1.0
+    return dict(s0=s0_ext, dpre1=dpre1.reshape(M, H), du=dpre0.sum(2),
+                dvp=dvp, de=(dpre0 @ w_e).reshape(B, N * N, E),
+                dwe=torch.einsum("bijh,bijq->biqh", dpre0, e),
+                dhead=dhead.reshape(M),
+                part=part.reshape(blocks, warps, 448))
+
+
+@pytest.mark.parametrize("shape", [(2, 40, 16, 2), (1, 70, 12, 3),
+                                   (3, 9, 20, 2)])
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
+def test_reduce_backward_matches_plain_backward(mode, shape):
+    """The wrapper's reduction of the kernel's outputs (dv partials added
+    over tiles, dW_e from the per-node sums, db0 from du, [dW1 | db1] from
+    s0's column of ones, dwh over blocks and warps, dbh over edges) gives
+    the plain backward's gradients to 1e-10 in float64, when fed what the
+    kernel writes, emulated in plain torch. Shapes: a last tile of one node
+    (N = 40), one node a tile (N = 70), E = 3."""
+    B, N, H, E = shape
+    c = _case(B, N, H, E, seed=N + H)
+    args, g = _port_args(c, mode)
+    ref = gk.fused_edge_pass_backward_reference(**args, g=g, mode=mode)
+    raw = _kernel_outputs(args, g, mode)
+    assert raw["dvp"].shape == (B, gk.backward_tiles(N)[1], N, H)
+    got = gk._reduce_backward(raw, args["bh"] is not None)
+    for name, x, r in zip(NAMES, got, ref):
+        if r is None:
+            assert x is None and mode == "coord", name
+            continue
+        assert x.shape == r.shape, name
+        torch.testing.assert_close(x, r, rtol=1e-10, atol=1e-10, msg=name)

@@ -262,6 +262,30 @@ def test_backward_kernel_matches_plain_backward(card, mode, shape):
 
 
 @pytest.mark.parametrize("mode", ["gcl", "coord"])
+@pytest.mark.parametrize("shape", [(64, 39, 420), (3, 42, 64)])
+def test_backward_kernel_is_deterministic(card, mode, shape):
+    """Two backward calls on the same inputs give equal gradients bit for
+    bit: every sum of the kernel and its wrapper is taken in a fixed
+    order (no atomics)."""
+    B, N, H = shape
+    args, _ = _inputs(torch.float32, B=B, N=N, H=H, seed=B + N)
+    if mode == "coord":
+        args["em"], args["bh"] = None, None
+    rng = np.random.default_rng(N + 1)
+    g_shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
+    g = torch.tensor(rng.standard_normal(g_shape), dtype=torch.float32,
+                     device="cuda")
+    first = gk.fused_edge_pass_backward(**args, g=g, mode=mode)
+    second = gk.fused_edge_pass_backward(**args, g=g, mode=mode)
+    torch.cuda.synchronize()
+    for name, x, y in zip(GRAD_NAMES, first, second):
+        if x is None:
+            assert y is None and mode == "coord", name
+            continue
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
 def test_f32_forward_under_grad_goes_through_the_function(card, mode):
     """A float32 call under grad on the card launches the forward kernel,
     and backward() launches the backward kernel, with W1 packed once for
