@@ -16,7 +16,15 @@ csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32,
 by side) and drives the port's main path, the
 reference-conditioned ``MLConformerGenerator.generate_conformers``, at full
 width (EGNN 420 x 9 blocks, AdjMatSeer 2048) with random weights made from a
-seed, in bf16 (the default) and in float32. Phases:
+seed, in bf16 (the default) and in float32. On the card each trajectory of
+the sampler runs as one captured CUDA graph, and FIRE as a captured graph of
+one step replayed once a step (``utils/cuda_graph.py``): the first request
+of a shape captures it, and its
+warm-up (the first reverse step and the decode) launches for real
+(``WARMUP_FORWARDS``); later requests replay it, each replay credited with
+the launches its capture recorded. So the launch checks count a capture's
+warm-up where a request captures, and the kernel-against-plain runs take
+the sampler's loop for their plain side. Phases:
 
 1. environment: device, name and power limit from nvidia-smi; TF32 off;
 2. build: ``nvcc`` for sm_90a, with the build time, and per source ptxas's
@@ -25,7 +33,8 @@ seed, in bf16 (the default) and in float32. Phases:
    plain PyTorch version on the card, at the production shape (B=128, N=40),
    at a shape with more than 48 nodes (B=16, N=64), at one whose graphs do
    not fill their last tile of target nodes (B=5, N=40), at the most nodes
-   a tile holds (B=8, N=128) and at the shape this run's request gives it;
+   a tile holds (B=8, N=128), at the edges twin's (B=128, N=42) and at the
+   shape this run's request gives it;
    kernel, plain and library times (CUDA events) beside the bound; then the
    cache of packed W1 in both types: a second launch packs nothing, an
    in-place change of W1 packs again and changes the result;
@@ -56,8 +65,8 @@ seed, in bf16 (the default) and in float32. Phases:
 9. the HTTP app: ``ConformerServer`` on the card behind a
    ``ThreadingHTTPServer`` on 127.0.0.1, ``GET /api/health`` names the card,
    ``POST /api/generate`` with the reference as a mol block (64 samples,
-   twice: the first builds the server's generator), status 200, JAX's
-   response keys, exact launches;
+   three times: the first builds the server's generator and captures its
+   graph), status 200, JAX's response keys, exact launches;
 10. shape from an STL mesh: a box written as a binary STL, its principal
     moments against the closed form, one request from that context;
 11. gradient guard: a bf16 denoiser forward on the card under grad, with
@@ -156,7 +165,29 @@ seed, in bf16 (the default) and in float32. Phases:
     its trace read by ``trace_breakdown``: the edge category's events equal
     the request's launches, its time the profiler's key averages within
     1%, busy within the window, the busy share and the five longest gaps
-    with the host ops open at their start.
+    with the host ops open at their start; in 19a also FIRE on the served
+    traffic: each relaxation's batch, whether it captured, its seconds
+    against the loop's on the same inputs, and a replay bit for bit the
+    loop;
+20. the one-program trajectories, the twin of JAX's ``jit(lax.scan)``:
+    (20a) the bf16 and the float32 request, two in a row from one seed,
+    through the captured graphs against the sampler's loop (the
+    comparison's own route): x and h bit for bit, the generator in one
+    state after both; (20b) the bf16 inpaint and IFM requests at 5d's
+    fragment, the same way; (20c) ``relax`` through its graph against the
+    loop of its steps on phase 12's batch (float32 and float64) and the
+    ring copies: coordinates bit for bit, the same uphill history, at a
+    capture and a replay, the well-conditioned ring copies within
+    ``FF_BAR`` of the CPU, and FIRE's 200 steps timed both ways in turns;
+    (20d) in every request of 20a-b exact launches (the graph's credited
+    by its replay) and no W1 packed; (20e) the bf16 request GRAPH_TURNS
+    times each through the graph and the loop in turns: median and range of
+    request seconds, ``edm_sampling_s``, ``standardize_s`` and (profiled
+    turns) the card's busy share, and of a capture's seconds over as many
+    fresh captures; (20f) one graphed request traced and read as 19d;
+    (20g) what the graphs hold on the card: the reserved memory across each
+    capture (generate, inpaint, IFM and relax at 64 and at 200 samples, the
+    most the app takes) and across a sampler cache filled to its bound.
 
 Files it writes (ONNX, ``.npz``, STL, ``.pt2``, the kernel cache, phase
 18's weights and report, phase 19's report and trace) go to
@@ -378,13 +409,18 @@ def edge_inputs(torch, B, N, H, dtype, sizes, seed):
 @contextlib.contextmanager
 def plain_edge_pass(gk):
     """Route the model's edge passes to the plain PyTorch version (the
-    reference the kernel is held against)."""
+    reference the kernel is held against), and the sampler's trajectories
+    to its loop: a captured graph would replay the kernels it recorded."""
+    from ml_conformer_generator_tpu_torch.diffusion.edm import EDMSampler
+
     kernel = gk.fused_edge_pass
     gk.fused_edge_pass = gk.fused_edge_pass_reference
+    EDMSampler._graphed = False
     try:
         yield
     finally:
         gk.fused_edge_pass = kernel
+        EDMSampler._graphed = True
 
 
 def kernel_phase(torch, gk, B, N, sizes, card, H=420):
@@ -769,6 +805,14 @@ def forward_launches(forwards, blocks=9):
     return launch_counts(2 * blocks * forwards, blocks * forwards)
 
 
+# The denoiser calls a trajectory's capture makes for real before it records
+# the graph (utils/cuda_graph.py): the warm-up runs the first reverse step
+# (with its resample and blend) and the decode. A request whose trajectory
+# shape the sampler has not captured yet makes them besides the replay's.
+WARMUP_FORWARDS = {"generate": 1 + 1, "inpaint": 1 + 1 + 1,
+                   "merge": 1 + 1}
+
+
 def launches_of(torch, gk, fn):
     """``fn()`` with the launch counts set to 0 just before it and read just
     after (the card synchronised). Returns (result, launches, seconds)."""
@@ -903,6 +947,7 @@ def roundtrip_phase(torch, gk, src, kw, workdir):
                                edm_weights=paths[0],
                                adj_mat_seer_weights=paths[1], device="cuda")
     weights_equal = same_weights(torch, gen, src)
+    seeded_request(torch, gk, gen, kw, seed=13)             # warm-up
     (x, h), launches, req_s = seeded_request(torch, gk, gen, kw)
     (xs, hs), _, _ = seeded_request(torch, gk, src, kw)
     rec = {"phase": "save_weights", "save_s": save_s,
@@ -927,10 +972,11 @@ APP_METRICS = {"requested", "valid", "validity", "generation_s",
 
 def app_phase(torch, gk, reference, kind):
     """``ConformerServer`` on the card behind a ``ThreadingHTTPServer`` on
-    127.0.0.1 (port 0): health names the card; two 64-sample generate
+    127.0.0.1 (port 0): health names the card; three 64-sample generate
     requests with the reference as a mol block (the first builds the
-    server's generator), each status 200 with JAX's keys and 27 launches a
-    forward."""
+    server's generator and captures its graph), each status 200 with JAX's
+    keys and 27 launches a forward (the first also its capture's
+    warm-up)."""
     import threading
     import urllib.error
     import urllib.request
@@ -963,7 +1009,7 @@ def app_phase(torch, gk, reference, kind):
     try:
         _, health = call("/api/health")
         posts = [launches_of(torch, gk, lambda: call("/api/generate", body))
-                 for _ in range(2)]
+                 for _ in range(3)]
         _, health_after = call("/api/health")
     finally:
         httpd.shutdown()
@@ -981,14 +1027,16 @@ def app_phase(torch, gk, reference, kind):
           f"health does not name the card: {health}")
     check(health_after["step_counts"] == [STEPS],
           f"health after the requests: {health_after}")
-    for r, ((_, out), _, _) in zip(recs, posts):
+    for k, (r, ((_, out), _, _)) in enumerate(zip(recs, posts)):
         check(r["status"] == 200, f"generate status {r['status']}")
         check(set(out) == APP_KEYS and set(out["metrics"]) == APP_METRICS,
               f"response keys {r['keys']} / {sorted(out['metrics'])}")
         check(out["metrics"]["requested"] == N_SAMPLES,
               f"requested {out['metrics']['requested']}")
-        check(r["launches"] == forward_launches(STEPS + 1),
-              f"app request launches {r['launches']}")
+        # the first request builds the generator and captures its graph
+        check(r["launches"] == forward_launches(
+            STEPS + 1 + (WARMUP_FORWARDS["generate"] if k == 0 else 0)),
+              f"app request {k} launches {r['launches']}")
     check(rec["server_thread_stopped"], "the HTTP server thread still runs")
 
 
@@ -1056,10 +1104,9 @@ def stl_phase(torch, gk, gen, workdir, n_atoms=25):
           "STL request: h is not one-hot on real nodes")
 
 
-def relax_batch(torch, mols, device, dtype):
-    """``forcefield.relax`` of ``mols`` on ``device`` in ``dtype``, as
-    ``optimize_geometry`` sets it up: the coordinates (B, N, 3) float64 on
-    the host and the (steps, B) branch history (P < 0)."""
+def relax_inputs(torch, mols, device, dtype):
+    """(x0, topology) of ``mols`` on ``device`` in ``dtype``, as
+    ``optimize_geometry`` sets them up."""
     import numpy as np
 
     from ml_conformer_generator_tpu_torch.chem import forcefield
@@ -1069,11 +1116,25 @@ def relax_batch(torch, mols, device, dtype):
     x0 = np.zeros((len(mols), n_pad, 3), np.float64)
     for b, m in enumerate(mols):
         x0[b, :m.num_atoms] = m.coords
+    return (torch.tensor(x0, device=device, dtype=dtype),
+            forcefield.to_device(ff, device, dtype))
+
+
+def relax_batch(torch, mols, device, dtype, loop=False):
+    """``forcefield.relax`` of ``mols`` on ``device`` in ``dtype`` (on the
+    card a captured graph), or with ``loop`` its steps as a loop
+    (``fire_steps``): the coordinates (B, N, 3) float64 on the host and
+    the (steps, B) branch history (P < 0)."""
+    from ml_conformer_generator_tpu_torch.chem import forcefield
+
+    x0, ff = relax_inputs(torch, mols, device, dtype)
     steps = []
     with torch.no_grad():
-        x = forcefield.relax(torch.tensor(x0, device=device, dtype=dtype),
-                             forcefield.to_device(ff, device, dtype),
-                             uphill_log=steps)
+        if loop:
+            x = forcefield.fire_steps(x0, ff, 200,
+                                      lambda k, uphill: steps.append(uphill))
+        else:
+            x = forcefield.relax(x0, ff, uphill_log=steps)
     return x.double().cpu().numpy(), torch.stack(steps).cpu().numpy()
 
 
@@ -1812,7 +1873,9 @@ def train_loop_phase(torch, gk, ds, reference, workdir):
                                     2 * blocks * steps, blocks * steps),
           f"train() launches {launches}")
     check(same, "the generator's weights are not the checkpoint's EMA")
-    check(req_launches == forward_launches(STEPS + 1),
+    # the new generator's first request also warms up its capture
+    check(req_launches == forward_launches(STEPS + 1
+                                           + WARMUP_FORWARDS["generate"]),
           f"request from the trained checkpoint: launches {req_launches}")
     del gen
 
@@ -2338,6 +2401,10 @@ def screening_phase(torch, gk, gen):
                 "launches": launches, "screen_s": secs,
                 "valid": rep.n_valid, "last_metrics": drv.last_metrics}
 
+    # capture each reference's trajectory graph for the generator's sampler
+    # and for the screening driver's, so that every counted run replays
+    serial_loop()
+    screen(1)
     runs = {"serial": serial_loop(), "depth1": screen(1),
             "depth2": screen(2), "serial_again": serial_loop()}
     first = runs["serial"]
@@ -2526,7 +2593,8 @@ def deployment_phase(torch, gk, gen, reference, kw, workdir):
     """The bf16 generator (EGNN 420 x 9, AdjMatSeer 2048, T = 100) exported
     by ``export_generator_artifacts(..., batch=32)`` (N = 42), each unit's
     export, save and load seconds and file size; the loaded sampler against
-    ``EDMSampler.generate`` fed the same raw draws, the loaded denoiser
+    ``EDMSampler.generate`` (a captured graph, captured before
+    it is counted) fed the same raw draws, the loaded denoiser
     against ``dynamics_forward``, the loaded AdjMatSeer against the eager
     logits, each bit for bit; exact launches a sampler call and 27 W1 packs
     a loaded program; ``MLConformerGeneratorAOT`` on the card (64 samples,
@@ -2620,6 +2688,7 @@ def deployment_phase(torch, gk, gen, reference, kw, workdir):
             del sampler.sample_noise
 
     with torch.no_grad():
+        eager_sampler()                     # captures the sampler's graph
         (xe, he), eager_launches, _ = launches_of(torch, gk, eager_sampler)
         gk.reset_pack_count()
         (xl, hl), loaded_launches, _ = launches_of(
@@ -2967,7 +3036,9 @@ def validity_phase(torch, gk, smi, workdir):
         return out
 
     def recording_phi(self, *a):
-        if not first_forward:
+        # a real call: the warm-up before a capture runs the forward on the
+        # card; a call under capture only records it
+        if not first_forward and not torch.cuda.is_current_stream_capturing():
             first_forward.append((self, a))
         return phi(self, *a)
 
@@ -2982,7 +3053,11 @@ def validity_phase(torch, gk, smi, workdir):
     steps = trained["edm_steps"]
     want_train = launch_counts(*(n * steps for n in want_step.values()))
     request = forward_launches(STEPS + 1, blocks)
-    want_serve = forward_launches(len(mols) * (STEPS + 1), blocks)
+    # each graph the serving generator captured warmed up once
+    captures = gen.sampler._graphs.captures
+    want_serve = forward_launches(
+        len(mols) * (STEPS + 1) + captures * WARMUP_FORWARDS["generate"],
+        blocks)
     check(counts["train"] == want_train,
           f"training launches {counts['train']}, expected {want_train}")
     check(counts["serve"] == want_serve,
@@ -3027,6 +3102,7 @@ def validity_phase(torch, gk, smi, workdir):
            "weights_equal_trained": same,
            "step_launches": step_launches, "train_launches": counts["train"],
            "request_launches": request, "serve_launches": counts["serve"],
+           "serve_captures": captures,
            "held_train_step": held_step, "held_request_forward": held_request,
            "missing_report_keys": missing,
            "stages": report["stages"]}
@@ -3069,15 +3145,73 @@ EDGES_MESH = ["--mesh", "1x2", "--batch", "64", "--nodes", "32", "--loops",
               "5", "--repeats", "2"]
 
 
+def recorded_relax(torch, relax, calls):
+    """``forcefield.relax`` that appends to ``calls``, for each call, its
+    batch (B, n_pad), whether it captured a graph, its seconds (the card
+    synchronised around it) and its inputs."""
+    from ml_conformer_generator_tpu_torch.chem import forcefield
+
+    def run(x0, ff, *a, **k):
+        captures = forcefield._GRAPHS.captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = relax(x0, ff, *a, **k)
+        torch.cuda.synchronize()
+        calls.append({"B": x0.shape[0], "n_pad": x0.shape[1],
+                      "captured": forcefield._GRAPHS.captures - captures,
+                      "graph_s": time.perf_counter() - t0,
+                      "inputs": (x0, ff)})
+        return x
+
+    return run
+
+
+def fire_traffic(torch, calls):
+    """FIRE on a served request's traffic: for each ``recorded_relax``
+    call, its seconds in the request (a capture, if it made one, and the
+    replays) against the loop of its steps on the same inputs, then a
+    replay's seconds; the replay bit for bit the loop. Returns the
+    record."""
+    from ml_conformer_generator_tpu_torch.chem import forcefield
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    per_call = []
+    for c in calls:
+        x0, ff = c.pop("inputs")
+        loop, c["loop_s"] = timed(
+            lambda: forcefield.fire_steps(x0, ff, 200, lambda k, u: None))
+        graph = forcefield.relax(x0, ff)      # captures again if evicted
+        _, c["replay_s"] = timed(lambda: forcefield.relax(x0, ff))
+        c["bit_equal"] = torch.equal(graph, loop)
+        per_call.append(c)
+    rec = {"calls": len(calls),
+           "captures": sum(c["captured"] for c in per_call),
+           "graph_s": sum(c["graph_s"] for c in per_call),
+           "loop_s": sum(c["loop_s"] for c in per_call),
+           "per_call": per_call}
+    check(all(c["bit_equal"] for c in per_call),
+          f"FIRE on the report's traffic: graph and loop differ: {rec}")
+    return rec
+
+
 def report_phase(torch, gk, smi, workdir):
     """19a: ``make_eval_report.evaluate`` at full width on phase 18's
     weights (REPORT_DEPTH protocol references, variance 2, 100 steps,
     bf16): exact launches, every payload key of the JAX script's, the
     fractions in [0, 1], the first forward of a request held against the
-    plain version, both files written. Returns the generator and its
-    references."""
+    plain version, both files written; FIRE on its traffic (its captures,
+    its seconds against the loop's, ``fire_traffic``). Returns the
+    generator and its references."""
     import dataclasses
 
+    from ml_conformer_generator_tpu_torch.chem import forcefield
     from ml_conformer_generator_tpu_torch.diffusion.edm import EDMSampler
     from ml_conformer_generator_tpu_torch.eval.harness import \
         EvaluationReport
@@ -3095,11 +3229,15 @@ def report_phase(torch, gk, smi, workdir):
     first_forward, phi = [], EDMSampler.phi
 
     def recording_phi(self, *a):
-        if not first_forward:
+        # a real call: the warm-up before a capture runs the forward on the
+        # card; a call under capture only records it
+        if not first_forward and not torch.cuda.is_current_stream_capturing():
             first_forward.append((self, a))
         return phi(self, *a)
 
     EDMSampler.phi = recording_phi
+    relaxes, relax = [], forcefield.relax
+    forcefield.relax = recorded_relax(torch, relax, relaxes)
     try:
         gk.reset_launch_counts()
         body, payload = report.evaluate(
@@ -3109,8 +3247,9 @@ def report_phase(torch, gk, smi, workdir):
         torch.cuda.synchronize()
         launches = dict(gk.LAUNCHES)
     finally:
-        EDMSampler.phi = phi
+        EDMSampler.phi, forcefield.relax = phi, relax
     report.write(body, payload, args.md, args.json)
+    fire = fire_traffic(torch, relaxes)
     sampler, a = first_forward[0]
     gk.reset_launch_counts()
     with torch.no_grad(), held_against_plain(torch, gk) as held:
@@ -3133,6 +3272,7 @@ def report_phase(torch, gk, smi, workdir):
         else 0.0}
     rec = {"phase": "eval_report", "references": n_refs, "samples": samples,
            "sizes": [r.num_atoms for r in refs], "launches": launches,
+           "captures": gen.sampler._graphs.captures, "fire": fire,
            "fractions": fractions, "n_valid": n_valid,
            "valid_mol_per_s": payload["valid_mol_per_s"],
            "total_gen_time_s": payload["total_gen_time_s"],
@@ -3141,7 +3281,9 @@ def report_phase(torch, gk, smi, workdir):
            "held_request_forward": held, "phase_s": time.perf_counter() - t0,
            "platform": payload["protocol"]["platform"], "nvidia_smi": smi}
     log(f"[tools] {json.dumps(rec)}")
-    want = forward_launches(n_refs * (STEPS + 1))
+    # each graph the report's generator captured warmed up once
+    want = forward_launches(n_refs * (STEPS + 1) + gen.sampler._graphs.captures
+                            * WARMUP_FORWARDS["generate"])
     check(launches == want, f"the report's launches {launches}, expected "
           f"{want}")
     check(set(payload) == want_keys
@@ -3205,18 +3347,20 @@ def microbench_phase(torch, smi):
               f"the microbench's kernel pass against plain: {rec}")
 
 
-def breakdown_phase(torch, gk, gen, reference, smi, workdir):
-    """19d: one bf16 request of N_SAMPLES around ``reference`` under
-    ``torch.profiler`` (a warm generator: no W1 packed), its trace written
-    and read by the breakdown twin: the edge category's events equal the
-    request's launches, its time the profiler's key averages for those
-    kernels within 1%, busy within the window. Logs the busy share and the
-    five longest gaps with their host ops."""
+def breakdown_phase(torch, gk, gen, reference, smi, workdir,
+                    name="trace_breakdown"):
+    """19d (and 20f): one bf16 request of N_SAMPLES around ``reference``
+    under ``torch.profiler`` (a warm generator: no W1 packed, no capture),
+    its trace written and read by the breakdown twin: the edge category's
+    events equal the request's launches (credited by the graph's replay),
+    its time the profiler's key averages for those kernels within 1%, busy
+    within the window. Logs the busy share and the five longest gaps with
+    their host ops, as ``name``."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
 
-    trace_dir = os.path.join(workdir, "trace")
+    trace_dir = os.path.join(workdir, name)
     shutil.rmtree(trace_dir, ignore_errors=True)
     os.makedirs(trace_dir)
     kw = dict(reference_conformer=reference, n_samples=N_SAMPLES,
@@ -3246,7 +3390,7 @@ def breakdown_phase(torch, gk, gen, reference, smi, workdir):
                    if e.device_type == cuda and "edge_mlp" in e.key)
     edge = breakdown_tool.EDGE
     want = forward_launches(STEPS + 1)
-    rec = {"phase": "trace_breakdown", "request_s_profiled": wall,
+    rec = {"phase": name, "request_s_profiled": wall,
            "request_s_unprofiled": unprofiled,
            "launches": launches, "w1_packs": packs,
            "device_events": rep["device_events"],
@@ -3291,6 +3435,375 @@ def tools_phase(torch, gk, smi, workdir):
     seconds["19d"] = time.perf_counter() - t0 - sum(seconds.values())
     log(f"[tools] phase 19: {time.perf_counter() - t0:.1f} s; "
         f"{json.dumps(seconds)}")
+
+
+# -- 20. the one-program trajectories ------------------------------------------
+
+# Phase 20e's timed turns: this many of each route, graph and loop, in turns
+# (graph, loop, loop, graph, ...), and as many fresh captures.
+GRAPH_TURNS = 5
+
+
+@contextlib.contextmanager
+def sampler_loop(sampler):
+    """Within: ``sampler`` runs its trajectories as the loop on the card,
+    the comparison's own route (the sampler's class attribute turned off on
+    the instance; nothing else reaches the loop with CUDA tensors)."""
+    sampler._graphed = False
+    try:
+        yield
+    finally:
+        del sampler._graphed
+
+
+def graph_against_loop(torch, gk, gen, kw, method, name, forwards,
+                       requests=2, seed=41):
+    """``requests`` requests in a row through ``gen`` from the noise seed
+    ``seed``, first through the captured graphs (warm: no capture), then
+    through the sampler's loop: the sampler's ``method`` outputs equal bit
+    for bit request by request, the generator in one state after each
+    route, exact launches (``forwards`` denoiser calls a request) in both
+    and no W1 packed. Returns the record."""
+    samples = recorded(gen, method)
+    runs, graphs = {}, gen.sampler._graphs.captures
+    try:
+        for route in ("graph", "loop"):
+            gen._generator.manual_seed(seed)
+            gk.reset_pack_count()
+            out, launches, secs = [], [], []
+            with (sampler_loop(gen.sampler) if route == "loop"
+                  else contextlib.nullcontext()):
+                for _ in range(requests):
+                    _, n, t = launches_of(
+                        torch, gk, lambda: gen.generate_conformers(**kw))
+                    out.append(samples[-1][:2])
+                    launches.append(n)
+                    secs.append(t)
+            runs[route] = {"out": out, "launches": launches, "s": secs,
+                           "packs": gk.PACKS,
+                           "state": gen._generator.get_state()}
+    finally:
+        delattr(gen.sampler, method)            # recorded()'s wrapper
+    g, l = runs["graph"], runs["loop"]
+    equal = [torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+             for a, b in zip(g["out"], l["out"])]
+    rec = {"request": name, "requests": requests, "bit_equal": equal,
+           "state_equal": torch.equal(g["state"], l["state"]),
+           "max_abs_dx": max((a[0] - b[0]).abs().max().item()
+                             for a, b in zip(g["out"], l["out"])),
+           "finite": all(torch.isfinite(a[0]).all().item()
+                         for a in l["out"]),
+           "launches": {"graph": g["launches"], "loop": l["launches"]},
+           "w1_packs": {"graph": g["packs"], "loop": l["packs"]},
+           "request_s": {"graph": g["s"], "loop": l["s"]},
+           "captures_during": gen.sampler._graphs.captures - graphs}
+    log(f"[graphs] {json.dumps(rec)}")
+    want = forward_launches(forwards)
+    check(all(equal) and rec["state_equal"],
+          f"{name}: graph and loop differ: {rec}")
+    check(all(n == want for n in g["launches"] + l["launches"]),
+          f"{name}: launches {rec['launches']}, expected {want} a request")
+    check(rec["captures_during"] == 0 and g["packs"] == 0 and l["packs"] == 0,
+          f"{name}: a capture or a W1 pack in a counted request: {rec}")
+    return rec
+
+
+def relax_graph_phase(torch, reference):
+    """20c: ``relax`` through its captured graph against the loop of its
+    steps (``fire_steps``) on the card: phase 12's batch (its copies that
+    standardize) in float32 and float64 and ``_RING``'s copies in float32,
+    bit for bit on the coordinates with the same branch history, at a
+    capture and at a replay; every well-conditioned ring copy within
+    ``FF_BAR`` of the CPU; the 200 steps' seconds, graph and loop in turns
+    (synchronised, phase 12's batch in float32)."""
+    import numpy as np
+
+    from ml_conformer_generator_tpu_torch.chem import forcefield
+    from ml_conformer_generator_tpu_torch.chem.standardize import \
+        standardize_batch
+
+    _, copies = reference_copies(reference, 64)
+    batch = [m for m in standardize_batch(copies, optimize_geometry_flag=False,
+                                          device="cpu") if m is not None]
+    ring = ring_copies(8, 0)
+    rec = {"phase": "relax_graph", "molecules": len(batch)}
+    for name, mols, dtypes in (("batch", batch, (torch.float32,
+                                                 torch.float64)),
+                               ("ring", ring, (torch.float32,))):
+        for dtype in dtypes:
+            runs = [relax_batch(torch, mols, "cuda", dtype) for _ in range(2)]
+            loop = relax_batch(torch, mols, "cuda", dtype, loop=True)
+            same = [np.array_equal(x, loop[0]) and np.array_equal(u, loop[1])
+                    for x, u in runs]
+            key = f"{name}_{str(dtype)[6:]}"
+            rec[key] = {"capture_and_replay_bit_equal_to_loop": same,
+                        "uphill_steps": int(loop[1].sum())}
+            check(all(same), f"relax {key}: graph and loop differ")
+    c32, _ = relax_batch(torch, ring, "cuda", torch.float32)
+    p32, _ = relax_batch(torch, ring, "cpu", torch.float32)
+    p64, _ = relax_batch(torch, ring, "cpu", torch.float64)
+    well = [k for k in range(len(ring))
+            if np.abs(p32[k] - p64[k]).max() <= WELL_CONDITIONED]
+    d32 = [float(np.abs(c32[k] - p32[k]).max()) for k in well]
+    rec["ring_well_conditioned"] = well
+    rec["ring_float32_abs_diff"] = d32
+    check(all(d <= FF_BAR for d in d32),
+          f"a well-conditioned ring copy beyond {FF_BAR} A: {rec}")
+
+    x0, ff = relax_inputs(torch, batch, "cuda", torch.float32)
+
+    def timed(route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if route == "graph":
+                forcefield.relax(x0, ff)
+            else:
+                forcefield.fire_steps(x0, ff, 200, lambda k, u: None)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    turns = {"graph": [], "loop": []}
+    for route in ("graph", "loop", "loop", "graph", "graph", "loop"):
+        turns[route].append(timed(route))
+    rec["fire_200_steps_s"] = turns
+    log(f"[graphs] {json.dumps(rec)}")
+    return rec
+
+
+def device_busy_s(torch, prof):
+    """Seconds in which the card ran anything (kernels, copies, sets) in a
+    ``torch.profiler`` run: the union of its device events' intervals."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda and e.duration_ns() > 0)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e9
+
+
+# Phase 20g's batches: the request's and the most samples the app takes in
+# one request (``app/server.py``: n_samples in [1, 200]).
+MEMORY_SAMPLES = (N_SAMPLES, 200)
+
+
+def graph_memory_phase(torch, gen, kw, fragment, reference):
+    """20g: what captured graphs hold on the card. Across each capture, the
+    change in ``torch.cuda.memory_reserved()`` (the allocator's cache
+    emptied before and after: the static inputs and outputs and the private
+    pool) and the static inputs' own bytes: the bf16 generate, inpaint and
+    IFM requests at each of MEMORY_SAMPLES on an emptied sampler cache, and
+    ``relax`` of phase 12's batch and of the copies of the largest; then
+    GRAPHS_KEPT generate graphs at the largest batch (distinct batch
+    sizes), the sampler's cache at its bound. Returns the record."""
+    import functools
+    import gc
+
+    from ml_conformer_generator_tpu_torch.chem import forcefield
+    from ml_conformer_generator_tpu_torch.chem.standardize import \
+        standardize_batch
+    from ml_conformer_generator_tpu_torch.diffusion import edm
+    from ml_conformer_generator_tpu_torch.utils.cuda_graph import GraphCache
+    from ml_conformer_generator_tpu_torch.utils.masks import prepare_masks
+
+    mib = 2.0 ** 20
+    readings, label = [], [""]
+
+    def reserved():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved()
+
+    def measured(capture):
+        def run(fn, inputs, **k):
+            r0 = reserved()
+            t0 = time.perf_counter()
+            graph = capture(fn, inputs, **k)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            readings.append({
+                "request": label[0],
+                "graph": ("relax" if "history" in inputs
+                          else fn.args[0]["trajectory"]),
+                "B": next(iter(inputs.values())).shape[0]
+                if "history" in inputs else inputs["node_mask"].shape[0],
+                "capture_s": secs,
+                "reserved_mib": (reserved() - r0) / mib,
+                "inputs_mib": sum(t.nbytes for t in inputs.values()) / mib})
+            return graph
+        return run
+
+    captures = edm.capture, forcefield.capture
+    edm.capture, forcefield.capture = map(measured, captures)
+    try:
+        for n in MEMORY_SAMPLES:
+            for name, extra in (
+                    ("generate", {}),
+                    ("inpaint", dict(fixed_fragment=fragment,
+                                     inertial_fragment_matching=False)),
+                    ("ifm", dict(fixed_fragment=fragment,
+                                 inertial_fragment_matching=True))):
+                gen.sampler._graphs = GraphCache(gen.sampler.GRAPHS_KEPT)
+                label[0] = f"{name}_{n}"
+                gen.generate_conformers(**dict(kw, n_samples=n, **extra))
+        _, copies = reference_copies(reference, max(MEMORY_SAMPLES))
+        batch = [m for m in standardize_batch(
+            copies, optimize_geometry_flag=False, device="cpu")
+            if m is not None]
+        for mols in (batch[:len(batch) * N_SAMPLES // len(copies)], batch):
+            forcefield._GRAPHS = GraphCache(forcefield._GRAPHS.maxsize)
+            label[0] = f"relax_{len(mols)}"
+            x0, ff = relax_inputs(torch, mols, "cuda", torch.float32)
+            with torch.no_grad():
+                forcefield.relax(x0, ff)
+    finally:
+        edm.capture, forcefield.capture = captures
+
+    log(f"[graphs] {json.dumps({'phase': 'graph_memory', 'captures': readings})}")
+    # the sampler's cache at its bound, at the largest batch
+    sampler, B = gen.sampler, max(MEMORY_SAMPLES)
+    sampler._graphs = GraphCache(sampler.GRAPHS_KEPT)
+    r0 = reserved()
+    kept = []
+    for i in range(sampler.GRAPHS_KEPT):
+        n = torch.full((B - i,), 39, device="cuda")
+        nm, em = prepare_masks(n, 40)
+        static = dict(trajectory="generate", resample_steps=0,
+                      diffusion_level=0, t_dtype=gen.gamma.dtype)
+        inputs = sampler.buffers(
+            gen._generator, gen.gamma, blend_power=3, dtype=gen.dtype,
+            node_mask=nm, edge_mask=em,
+            context=torch.zeros((B - i, 40, 3), device="cuda"), **static)
+        replay = functools.partial(sampler.from_buffers, static)
+        with torch.no_grad():
+            kept.append(edm.capture(
+                replay, inputs, warmup=functools.partial(replay, steps=1)))
+        del inputs
+    bound = (reserved() - r0) / mib
+    del kept
+    rec = {"phase": "graph_memory", "captures": readings,
+           "bound": {"graphs": sampler.GRAPHS_KEPT, "samples": B,
+                     "reserved_mib": bound}}
+    log(f"[graphs] {json.dumps(rec['bound'])}")
+    check(len(readings) >= 2 * 4 and all(r["reserved_mib"] > 0
+                                         for r in readings),
+          f"graph memory: {rec}")
+    return rec
+
+
+def graph_timing_phase(torch, gk, gen, kw):
+    """20e: the bf16 request (phase 5's) through the captured graph and
+    through the sampler's loop, GRAPH_TURNS each in turns, unprofiled:
+    request seconds, ``edm_sampling_s``, ``standardize_s``; then as many
+    turns again under ``torch.profiler`` (device events only) for the
+    card's busy share over the request; and GRAPH_TURNS requests each on
+    an emptied graph cache, the capture's seconds (warm-up, recording and
+    instantiation) timed around ``capture``. Returns median and range of
+    each."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ml_conformer_generator_tpu_torch.diffusion import edm
+    from ml_conformer_generator_tpu_torch.utils.cuda_graph import GraphCache
+
+    def request(route, profiled=False):
+        ctx = (sampler_loop(gen.sampler) if route == "loop"
+               else contextlib.nullcontext())
+        prof = (profile(activities=[ProfilerActivity.CUDA]) if profiled
+                else contextlib.nullcontext())
+        with ctx, prof as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen.generate_conformers(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out = {"request_s": wall,
+               "edm_sampling_s": gen.last_metrics["edm_sampling_s"],
+               "standardize_s": gen.last_metrics["standardize_s"]}
+        if profiled:
+            out["busy_share"] = device_busy_s(torch, p) / wall
+        return out
+
+    order = (["graph", "loop", "loop", "graph"] * GRAPH_TURNS)[:2 * GRAPH_TURNS]
+    turns = {"graph": [], "loop": []}
+    for route in order:
+        turns[route].append(request(route))
+    busy = {"graph": [], "loop": []}
+    for route in order:
+        busy[route].append(request(route, profiled=True)["busy_share"])
+    capture, captured = edm.capture, []
+
+    def timed_capture(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = capture(*a, **k)
+        torch.cuda.synchronize()
+        captured.append(time.perf_counter() - t0)
+        return graph
+
+    edm.capture = timed_capture
+    first = []
+    try:
+        for _ in range(GRAPH_TURNS):
+            gen.sampler._graphs = GraphCache(gen.sampler.GRAPHS_KEPT)
+            first.append(request("graph"))
+    finally:
+        edm.capture = capture
+
+    def spread(values):
+        return {"median": statistics.median(values), "min": min(values),
+                "max": max(values)}
+
+    rec = {"phase": "graph_timing", "turns": GRAPH_TURNS, "order": order}
+    for route, rs in turns.items():
+        rec[route] = {k: spread([r[k] for r in rs]) for k in rs[0]}
+        rec[route]["busy_share"] = spread(busy[route])
+    rec["capture_s"] = spread(captured)
+    rec["first_request_s"] = spread([r["request_s"] for r in first])
+    log(f"[graphs] {json.dumps(rec)}")
+    check(len(captured) == GRAPH_TURNS,
+          f"{len(captured)} captures in {GRAPH_TURNS} fresh requests")
+    check(all(0.0 < b <= 1.0 for bs in busy.values() for b in bs),
+          f"a busy share outside (0, 1]: {rec}")
+    return rec
+
+
+def graphs_phase(torch, gk, gens, reference, kw, fragment, smi, workdir):
+    """Phase 20, the JAX package's execution model on the card: (20a) the
+    bf16 and float32 requests, two in a row, graph against loop; (20b) the
+    bf16 inpaint and IFM requests at phase 5d's fragment, the same way;
+    (20c) ``relax`` graph against loop; (20d) in each, exact launches
+    credited by the replay and no W1 packed; (20e) the timed turns; (20f)
+    one graphed request traced and broken down; (20g) the graphs' memory."""
+    t0 = time.perf_counter()
+    recs = {}
+    for name, gen in gens.items():
+        recs[name] = graph_against_loop(torch, gk, gen, kw, "generate",
+                                        f"generate_{name}", STEPS + 1)
+    bf16 = gens["bfloat16"]
+    frag = dict(kw, fixed_fragment=fragment)
+    recs["inpaint"] = graph_against_loop(
+        torch, gk, bf16, dict(frag, inertial_fragment_matching=False),
+        "inpaint", "inpaint", 2 * STEPS + 1)
+    recs["ifm"] = graph_against_loop(
+        torch, gk, bf16, dict(frag, inertial_fragment_matching=True),
+        "merge_fragments", "ifm", (STEPS + 1) + (min(50, STEPS - 1) + 1) + 1)
+    recs["relax"] = relax_graph_phase(torch, reference)
+    recs["memory"] = graph_memory_phase(torch, bf16, kw, fragment, reference)
+    recs["timing"] = graph_timing_phase(torch, gk, bf16, kw)
+    breakdown_phase(torch, gk, bf16, reference, smi, workdir,
+                    name="graph_trace_breakdown")
+    log(f"[graphs] phase 20: {time.perf_counter() - t0:.1f} s; {smi}")
+    return recs
 
 
 # Run by ``--compare-train DIR`` in each of two checkouts, in a process of
@@ -3429,6 +3942,9 @@ def main() -> int:
     kernel_phase(torch, gk, 5, 40, (15, 39), card)
     log("[kernel] the most nodes a tile holds (B=8 N=128)")
     kernel_phase(torch, gk, 8, 128, (100, 128), card)
+    log("[kernel] the edges twin's shape (B=128 N=42, graphs of 25-39 "
+        "nodes)")
+    kernel_phase(torch, gk, 128, 42, (25, 39), card)
     path = kernel_phase(torch, gk, N_SAMPLES, n_pad,
                         (ref_n - VARIANCE, max_n), card)
     for dtype in (torch.bfloat16, torch.float32):
@@ -3522,8 +4038,11 @@ def main() -> int:
         (xk, hk, _), (xp, hp, _) = frag_samples
         frag_err = (xk - xp).abs().max().item()
         # inpaint: T * 2 + 1 forwards; IFM: T + 1 at N = 32 - 8, then
-        # min(50, T - 1) + 1 + 1 (T = 4)
-        forwards = 9 if not ifm else 5 + 4 + 1
+        # min(50, T - 1) + 1 + 1 (T = 4); each trajectory's first request
+        # also warms up its capture
+        forwards = (9 + WARMUP_FORWARDS["inpaint"] if not ifm else
+                    5 + 4 + 1 + WARMUP_FORWARDS["generate"]
+                    + WARMUP_FORWARDS["merge"])
         log(f"[e2e] f32 T=4 B=8 {method} (fragment of {len(frag_idx)} "
             f"atoms), kernel vs plain: max |dx| {frag_err:.3e} (|x| max "
             f"{xp.abs().max().item():.3e}), h equal: {torch.equal(hk, hp)}, "
@@ -3550,14 +4069,14 @@ def main() -> int:
         f"{tuple(xb.shape)}, launches {dict(gk.LAUNCHES)}")
     check(tuple(xb.shape) == (4, 64, 3) and torch.isfinite(xb).all().item(),
           "generation with max_n_nodes=60 failed")
-    check(gk.LAUNCHES == forward_launches(3),
+    check(gk.LAUNCHES == forward_launches(3 + WARMUP_FORWARDS["generate"]),
           f"launches with max_n_nodes=60: {gk.LAUNCHES}")
     del big
 
     # 5b. the request, at full width in bf16 (the default), then in float32
     kw = dict(reference_conformer=reference, n_samples=N_SAMPLES,
               variance=VARIANCE, optimise_geometry=True)
-    requests = {}
+    requests, gens = {}, {}
     for name in ("bfloat16", "float32"):
         t0 = time.perf_counter()
         gen = MLConformerGenerator(diffusion_steps=STEPS, seed=0,
@@ -3568,9 +4087,9 @@ def main() -> int:
         check(gen.device.type == "cuda", "the generator is not on the card")
         requests[name] = timed_request(torch, gk, gen, recorded(gen), kw,
                                        n_pad, path, name, ref_n)
-        if name == "bfloat16":
-            bf16_gen = gen
-        del gen
+        gens[name] = gen
+    bf16_gen = gens["bfloat16"]
+    del gen
 
     # 5d. the full-width bf16 request with a fixed fragment: inpainting
     # (one resample: T * 2 + 1 forwards) and IFM (the complement generated
@@ -3647,6 +4166,9 @@ def main() -> int:
 
     # -- 19. the JAX system's tools on phase 18's weights ------------------------
     tools_phase(torch, gk, smi, workdir)
+
+    # -- 20. the one-program trajectories: graph against loop ---------------------
+    graphs_phase(torch, gk, gens, reference, kw, fragment, smi, workdir)
 
     # One entry per kernel and mode: the forward kernels at the request's
     # shape, launches those of the request in the kernel's type; the

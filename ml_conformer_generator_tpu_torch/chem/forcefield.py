@@ -12,7 +12,16 @@ bond order; cosine angle bends with hybridisation-dependent ideal angles;
 2-fold torsions about double/aromatic bonds; improper terms at sp2 centres
 with three neighbours; soft-core repulsion between non-bonded pairs; and
 flat-bottomed harmonic position restraints (0.2 A / k=800) to the input
-geometry. Minimisation: batched FIRE at a fixed iteration count.
+geometry. Minimisation: batched FIRE at a fixed iteration count. On the card
+one FIRE step, its autograd forward and backward included, is a captured
+CUDA graph per batch shape (``utils/cuda_graph.py``) over static buffers of
+the state, replayed once a step, the counterpart of the JAX package's
+jitted ``lax.scan`` (a step's capture costs milliseconds where the whole
+relaxation's cost about a second, and the batch shape changes with nearly
+every request: PERF.md); on CPU tensors it runs as a loop of the same
+steps (:func:`fire_steps`). The card's gradient sums each atom's
+contributions in a fixed order, so a relaxation gives the same bits every
+time it runs.
 
 ``build_ff_batch`` (numpy topology) is a copy of the JAX package's.
 """
@@ -20,11 +29,13 @@ geometry. Minimisation: batched FIRE at a fixed iteration count.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..utils.cuda_graph import GraphCache, capture
 from ..utils.device import resolve_device
 from . import periodic
 from .mol import Molecule
@@ -198,9 +209,42 @@ def to_device(ff: FFBatch, device, dtype=torch.float32) -> FFBatch:
     return FFBatch(**out)
 
 
+class _Take(torch.autograd.Function):
+    """``torch.gather`` of coordinate rows whose backward sums each atom's
+    contributions in a fixed order on the card too. Autograd's own
+    backward of a gather scatter-adds with atomics on CUDA, so two
+    relaxations of one batch could part in the last bits; the card's
+    backward here is a masked sum over the gathered rows instead. On the
+    CPU it is autograd's scatter-add (sequential, the same bits as
+    before)."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_atoms = x.shape[1]
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        if g.is_cuda:
+            return _fixed_order_gather_grad(idx, g, ctx.n_atoms), None
+        out = g.new_zeros(g.shape[0], ctx.n_atoms, 3)
+        return out.scatter_add_(1, idx[..., None].expand(-1, -1, 3), g), None
+
+
+def _fixed_order_gather_grad(idx, g, n_atoms: int) -> torch.Tensor:
+    """d/dx of gathering rows ``idx`` (B, M) of x (B, n_atoms, 3), given
+    the rows' gradient g (B, M, 3): each atom's rows summed by a reduction
+    over M, whose order is fixed."""
+    atoms = torch.arange(n_atoms, device=g.device)
+    onehot = (idx[..., None] == atoms).to(g.dtype)             # (B, M, N)
+    return (onehot[..., None] * g[:, :, None, :]).sum(1)
+
+
 def _take(x, idx):
     """Gather coordinates: x (B, N, 3), idx (B, M) -> (B, M, 3)."""
-    return torch.gather(x, 1, idx[..., None].expand(-1, -1, 3))
+    return _Take.apply(x, idx)
 
 
 def _cross(a, b):
@@ -278,6 +322,97 @@ def energy_grad(x, x0, ff: FFBatch) -> torch.Tensor:
     return g
 
 
+#: FIRE's constants (Bitzek et al.): the mixing factor's start and decay,
+#: the timestep's growth and cut, and the downhill steps before growth.
+_ALPHA0, _F_ALPHA, _F_INC, _F_DEC, _N_MIN = 0.1, 0.99, 1.1, 0.5, 5
+
+
+def fire_state(x0: torch.Tensor, dt0: float):
+    """FIRE's state at its start: (x, v, dt, alpha, n_pos), the last three
+    per sample."""
+    B = x0.shape[0]
+    f = dict(dtype=x0.dtype, device=x0.device)
+    return (x0, torch.zeros_like(x0), torch.full((B,), dt0, **f),
+            torch.full((B,), _ALPHA0, **f),
+            torch.zeros((B,), dtype=torch.int32, device=x0.device))
+
+
+def fire_step(x, v, dt, alpha, n_pos, x0, ff: FFBatch, dt_max: float,
+              max_step: float):
+    """One FIRE step, as :func:`relax` documents it: the next (x, v, dt,
+    alpha, n_pos) and the (B,) bool branch tensor (``P < 0``). Constant
+    scalars only and no host synchronisation."""
+    nm = ff.node_mask[..., None]
+    f = -energy_grad(x, x0, ff) * nm
+    p = torch.sum(f * v, dim=(1, 2))                            # (B,)
+    vnorm = torch.sqrt(torch.sum(v * v, dim=(1, 2)) + 1e-12)
+    fnorm = torch.sqrt(torch.sum(f * f, dim=(1, 2)) + 1e-12)
+    v_mix = ((1 - alpha)[:, None, None] * v
+             + (alpha * vnorm / fnorm)[:, None, None] * f)
+    uphill = p < 0.0
+    v = torch.where(uphill[:, None, None], torch.zeros_like(v_mix), v_mix)
+    n_pos = torch.where(uphill, torch.zeros_like(n_pos), n_pos + 1)
+    grow = (~uphill) & (n_pos > _N_MIN)
+    dt = torch.where(grow, torch.clamp(dt * _F_INC, max=dt_max),
+                     torch.where(uphill, dt * _F_DEC, dt))
+    alpha = torch.where(grow, alpha * _F_ALPHA,
+                        torch.where(uphill, torch.full_like(alpha, _ALPHA0),
+                                    alpha))
+    v = v + dt[:, None, None] * f
+    dx = dt[:, None, None] * v
+    step_len = torch.sqrt(torch.sum(dx * dx, -1, keepdim=True) + 1e-12)
+    dx = dx * torch.clamp(max_step / step_len, max=1.0)
+    return x + dx * nm, v, dt, alpha, n_pos, uphill
+
+
+def fire_steps(x0: torch.Tensor, ff: FFBatch, n_steps: int, record,
+               dt0: float = 2e-3, dt_max: float = 1e-2,
+               max_step: float = 0.02) -> torch.Tensor:
+    """``n_steps`` FIRE steps from x0 as a loop (the plain version);
+    ``record(k, uphill)`` receives step k's (B,) bool branch tensor."""
+    state = fire_state(x0, dt0)
+    for k in range(n_steps):
+        *state, uphill = fire_step(*state, x0, ff, dt_max, max_step)
+        record(k, uphill)
+    return state[0]
+
+
+def fire_buffers(x0: torch.Tensor, ff: FFBatch, n_steps: int,
+                 dt0: float = 2e-3):
+    """The tensors a step graph reads and writes, by name: x0, FIRE's
+    state at its start (x a copy of x0: the step writes it), the step count
+    (1,) and the (n_steps, B) branch history, and the topology's fields."""
+    x, v, dt, alpha, n_pos = fire_state(x0, dt0)
+    return dict(x0=x0, x=x.clone(), v=v, dt=dt, alpha=alpha, n_pos=n_pos,
+                step=torch.zeros((1,), dtype=torch.int64, device=x0.device),
+                history=torch.empty((n_steps, x0.shape[0]), dtype=torch.bool,
+                                    device=x0.device),
+                **{f.name: getattr(ff, f.name)
+                   for f in dataclasses.fields(FFBatch)})
+
+
+def fire_graph_step(x0, x, v, dt, alpha, n_pos, step, history, *,
+                    dt_max: float = 1e-2, max_step: float = 0.02,
+                    **topology):
+    """The function a step graph captures: one :func:`fire_step` on
+    :func:`fire_buffers`'s tensors, in place, its branch tensor written
+    into row ``step`` of ``history``. Returns (x, history)."""
+    *new, uphill = fire_step(x, v, dt, alpha, n_pos, x0, FFBatch(**topology),
+                             dt_max, max_step)
+    for buf, value in zip((x, v, dt, alpha, n_pos), new):
+        buf.copy_(value)
+    history.index_copy_(0, step, uphill[None])
+    step.add_(1)
+    return x, history
+
+
+#: Captured FIRE steps, by step count, constants, device and every input's
+#: shape and type (the batch size and term counts change per request: one
+#: capture each, as JAX's jit retraces). On the H100 a step's capture takes
+#: about 30 ms and holds 4-30 MiB for 55-172 molecules (PERF.md).
+_GRAPHS = GraphCache(8)
+
+
 def relax(x0: torch.Tensor, ff: FFBatch, n_steps: int = 200,
           dt0: float = 2e-3, dt_max: float = 1e-2,
           max_step: float = 0.02,
@@ -292,38 +427,27 @@ def relax(x0: torch.Tensor, ff: FFBatch, n_steps: int = 200,
     tensors on x0's device. ``uphill_log``, when given, receives each step's
     (B,) bool tensor of samples that took the uphill branch (``P < 0``): the
     branch history by which two runs of one batch can be told apart.
+
+    On CUDA tensors one step, its autograd forward and backward included,
+    is a captured CUDA graph (``utils/cuda_graph.py``) over the state's
+    static buffers, replayed ``n_steps`` times with no host work between
+    replays; on CPU tensors a loop (:func:`fire_steps`).
     """
-    B = x0.shape[0]
-    alpha0, f_alpha, f_inc, f_dec, n_min = 0.1, 0.99, 1.1, 0.5, 5
-    nm = ff.node_mask[..., None]
-    x = x0
-    v = torch.zeros_like(x0)
-    dt = torch.full((B,), dt0, dtype=x0.dtype, device=x0.device)
-    alpha = torch.full((B,), alpha0, dtype=x0.dtype, device=x0.device)
-    n_pos = torch.zeros((B,), dtype=torch.int32, device=x0.device)
-    for _ in range(n_steps):
-        f = -energy_grad(x, x0, ff) * nm
-        p = torch.sum(f * v, dim=(1, 2))                        # (B,)
-        vnorm = torch.sqrt(torch.sum(v * v, dim=(1, 2)) + 1e-12)
-        fnorm = torch.sqrt(torch.sum(f * f, dim=(1, 2)) + 1e-12)
-        v_mix = ((1 - alpha)[:, None, None] * v
-                 + (alpha * vnorm / fnorm)[:, None, None] * f)
-        uphill = p < 0.0
-        if uphill_log is not None:
-            uphill_log.append(uphill)
-        v = torch.where(uphill[:, None, None], torch.zeros_like(v_mix), v_mix)
-        n_pos = torch.where(uphill, torch.zeros_like(n_pos), n_pos + 1)
-        grow = (~uphill) & (n_pos > n_min)
-        dt = torch.where(grow, torch.clamp(dt * f_inc, max=dt_max),
-                         torch.where(uphill, dt * f_dec, dt))
-        alpha = torch.where(grow, alpha * f_alpha,
-                            torch.where(uphill, torch.full_like(alpha, alpha0),
-                                        alpha))
-        v = v + dt[:, None, None] * f
-        dx = dt[:, None, None] * v
-        step_len = torch.sqrt(torch.sum(dx * dx, -1, keepdim=True) + 1e-12)
-        dx = dx * torch.clamp(max_step / step_len, max=1.0)
-        x = x + dx * nm
+    consts = dict(dt_max=dt_max, max_step=max_step)
+    if x0.device.type != "cuda" or not n_steps:    # no step: no graph
+        def record(k, uphill):
+            if uphill_log is not None:
+                uphill_log.append(uphill)
+
+        return fire_steps(x0, ff, n_steps, record, dt0=dt0, **consts)
+    inputs = fire_buffers(x0, ff, n_steps, dt0)
+    key = (n_steps, tuple(sorted(consts.items())), x0.device,
+           tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+    graph = _GRAPHS.get(key, None, lambda: capture(
+        functools.partial(fire_graph_step, **consts), inputs))
+    x, history = graph(replays=n_steps, **inputs)
+    if uphill_log is not None:
+        uphill_log.extend(history.unbind(0))
     return x
 
 

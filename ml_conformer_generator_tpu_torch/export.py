@@ -180,11 +180,15 @@ def export_sampler(dynamics, egnn_cfg: EGNNConfig, diff_cfg: DiffusionConfig,
                                             diff_cfg.schedule_power))
     # One row per reverse step, in the loop's order (s = T-1 .. 0); the
     # table stays on the CPU, so that each step's 0-d scalars reach the
-    # device arithmetic as the eager loop's Python floats do.
-    schedule = torch.tensor([step_scalars(gamma, s, T)
-                             for s in range(T - 1, -1, -1)], dtype=gamma.dtype)
+    # device arithmetic as the eager loop's Python floats do, and in
+    # float64, which holds each of them exactly (the reciprocals are
+    # rounded for the latent's type, not gamma's).
+    schedule = torch.tensor([step_scalars(gamma, s, T, dt)
+                             for s in range(T - 1, -1, -1)],
+                            dtype=torch.float64)
     program = _Program(dynamics, bake_params,
-                       functools.partial(_sample, decode=decode_scalars(gamma),
+                       functools.partial(_sample,
+                                         decode=decode_scalars(gamma, dt),
                                          diff_cfg=diff_cfg),
                        schedule=schedule)
     z = dict(device=dev, dtype=dt)

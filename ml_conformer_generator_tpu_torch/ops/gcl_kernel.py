@@ -62,9 +62,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -81,9 +82,14 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 #: Kernel launches per mode since import (or since the caller reset them):
 #: the forward kernels under the mode's name, the backward kernel under the
-#: mode's name and "_bwd".
+#: mode's name and "_bwd". A launch recorded into a CUDA graph under capture
+#: is not a launch: it goes to the capturing thread's tally
+#: (:func:`captured_launches`), and each replay of the graph credits what its
+#: capture recorded (:func:`credit_launches`, ``utils/cuda_graph.py``).
 LAUNCHES: Dict[str, int] = {"gcl": 0, "coord": 0, "gcl_bwd": 0,
                             "coord_bwd": 0}
+#: Per thread: launches recorded into graphs captured on that thread.
+_CAPTURED = threading.local()
 
 #: Times W1 was packed since import (or since the caller reset it). A
 #: weight is packed once and then served from the cache; a forward that
@@ -126,6 +132,44 @@ def reset_launch_counts() -> None:
 def reset_pack_count() -> None:
     global PACKS
     PACKS = 0
+
+
+def _count_launch(key: str, reads: Tuple[torch.Tensor, ...] = ()) -> None:
+    """One launch of the kernel counted under ``key``: into LAUNCHES, or,
+    while this thread's current stream is capturing a CUDA graph, into the
+    thread's tally of captured launches, and ``reads`` (what the kernel
+    reads that its caller does not hold: the packed W1) into the thread's
+    list of tensors the graph must keep alive."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        tally = captured_launches()
+        tally[key] = tally.get(key, 0) + 1
+        captured_reads().extend(reads)
+    else:
+        LAUNCHES[key] += 1
+
+
+def captured_launches() -> Dict[str, int]:
+    """This thread's tally of launches recorded into CUDA graphs, by
+    LAUNCHES key, since the thread started (the live dict)."""
+    if not hasattr(_CAPTURED, "tally"):
+        _CAPTURED.tally = {}
+    return _CAPTURED.tally
+
+
+def captured_reads() -> List[torch.Tensor]:
+    """This thread's tensors read by launches recorded into CUDA graphs and
+    not yet taken by their graph (the live list): a replay reads them by
+    address, so the graph holds them."""
+    if not hasattr(_CAPTURED, "reads"):
+        _CAPTURED.reads = []
+    return _CAPTURED.reads
+
+
+def credit_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (a graph's recorded launches) to LAUNCHES: one replay
+    of that graph."""
+    for key, n in counts.items():
+        LAUNCHES[key] += n
 
 
 def _chunk_swizzle(device) -> torch.Tensor:
@@ -194,13 +238,14 @@ def packed_w1(w1: torch.Tensor, backward: bool = False):
     global PACKS
     key = id(w1)
     hit = _PACK_CACHE.get(key)
-    if (hit is not None and hit[0]() is w1
-            and hit[1].data_ptr() == w1.data_ptr()
-            and hit[2] == w1._version
-            and (hit[4] is not None or not backward)):
+    valid = (hit is not None and hit[0]() is w1
+             and hit[1].data_ptr() == w1.data_ptr() and hit[2] == w1._version)
+    if valid and (hit[4] is not None or not backward):
         return (hit[3], hit[4]) if backward else hit[3]
     source = w1.detach()
-    packed = pack_w1(source)
+    # a valid entry's forward pack is kept: graphs captured before the
+    # backward pack was added read it by address
+    packed = hit[3] if valid else pack_w1(source)
     packed_bwd = pack_w1(source.t()) if backward else None
     PACKS += 1
     ref = weakref.ref(w1, lambda _, key=key: _PACK_CACHE.pop(key, None))
@@ -538,7 +583,7 @@ def _launch_forward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *, mode, norm,
         raise RuntimeError(
             "edge pass kernel failed: "
             + libs["bfloat16"].mlcg_cuda_error_string(rc).decode())
-    LAUNCHES[mode] += 1
+    _count_launch(mode, (w1p,))
     return out
 
 
@@ -666,7 +711,7 @@ def _launch_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *, mode,
         raise RuntimeError(
             "edge pass backward kernel failed: "
             + _load()["bfloat16"].mlcg_cuda_error_string(rc).decode())
-    LAUNCHES[f"{mode}_bwd"] += 1
+    _count_launch(f"{mode}_bwd", tuple(w1p))
     return _reduce_backward(raw, bh is not None)
 
 

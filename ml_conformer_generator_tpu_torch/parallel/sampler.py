@@ -69,6 +69,11 @@ class ShardedEDMSampler(EDMSampler):
     """EDMSampler whose denoiser is the edge-sharded EGNN (``edge_mask``
     arguments are the local j-column slab)."""
 
+    # The trajectories stay the loop, on the card too: every forward
+    # all-reduces over the edge row through gloo, which stages CUDA tensors
+    # through the host and cannot be captured into a CUDA graph.
+    _graphed = False
+
     def __init__(self, dynamics, diff_cfg: DiffusionConfig, mesh: Mesh,
                  egnn_cfg: Optional[EGNNConfig] = None):
         super().__init__(dynamics, diff_cfg)

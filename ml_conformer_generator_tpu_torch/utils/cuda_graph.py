@@ -1,0 +1,199 @@
+"""Captured CUDA graphs: the port's twin of a jitted ``lax.scan``.
+
+The JAX package compiles each trajectory (the sampler's three, FIRE's
+relaxation) into one XLA program, cached per static configuration and
+retraced per shape. On the card the port records the same work once into a
+``torch.cuda.CUDAGraph`` and replays it: one launch from the host for a
+whole sampler trajectory in place of thousands, and one for each FIRE step
+(a graph of one step, replayed once a step: the relaxation's batch shape
+changes with nearly every request, and a step captures in milliseconds
+where the whole relaxation took about a second).
+
+:func:`capture` records ``fn(**inputs)`` into a graph over static copies of
+``inputs`` and returns a :class:`CapturedGraph`, which a call copies new
+inputs into, replays on the caller's current stream and returns copies of
+the outputs of. The idiom, and why:
+
+* ``fn`` runs once eagerly first (``warmup``, by default ``fn`` itself) on
+  a side stream of the calling thread's own: first-call work (a library
+  handle's workspace for that stream, the edge kernels' packed W1 and
+  shared-memory attributes) happens outside the graph;
+* the capture runs on that same side stream with
+  ``capture_error_mode="thread_local"``: the screening driver samples on a
+  worker thread while the caller's thread relaxes on the default stream, so
+  two threads may capture at once. ``torch.cuda.graph`` is not used: it
+  captures on a stream shared by every thread, and synchronises the device
+  and empties the allocator's cache on entry;
+* a call replays on the caller's current stream, after the graph's last
+  call has finished with the static buffers (an event), under a lock;
+* launches of the edge kernels recorded by the capture
+  (``ops/gcl_kernel.py``'s tally) are credited to ``LAUNCHES`` on every
+  replay, so a replayed request counts the launches it makes; the packed
+  W1 those launches read is held by the graph, so that a repack (the
+  backward's, or a weight's new version) cannot free what a replay reads.
+
+What a graph holds: its static inputs and outputs, and a private memory
+pool with every intermediate tensor the capture allocated (the allocator
+reuses a block freed within the capture, so this is about one step's
+working set, not the trajectory's). The pool lives as long as the graph.
+:class:`GraphCache` bounds how many graphs are kept (PERF.md gives what a
+sampler's and FIRE's graphs hold on the H100).
+
+Everything here needs CUDA tensors: a CPU tensor raises. Nothing here
+falls back to running ``fn`` eagerly.
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Callable, Dict, Hashable, Optional, Tuple
+
+import torch
+
+from ..ops import gcl_kernel
+
+__all__ = ["CapturedGraph", "GraphCache", "capture"]
+
+#: Per thread: the side stream that thread warms up and captures on, by
+#: device.
+_SIDE = threading.local()
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    streams = getattr(_SIDE, "streams", None)
+    if streams is None:
+        streams = _SIDE.streams = {}
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+def _cuda_device(tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"a CUDA graph takes tensors on one CUDA device, "
+                         f"got {sorted(map(str, devices))}")
+    return next(iter(devices))
+
+
+def _map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return type(tree)(_map(fn, t) for t in tree)
+
+
+class CapturedGraph:
+    """A captured graph, its static inputs (by name) and outputs (a tensor
+    or a tuple of them), and the edge-kernel launches one replay makes."""
+
+    def __init__(self, graph: torch.cuda.CUDAGraph,
+                 inputs: Dict[str, torch.Tensor], outputs,
+                 launches: Dict[str, int], device: torch.device,
+                 reads: Tuple[torch.Tensor, ...] = ()):
+        self.graph = graph
+        self.inputs = inputs
+        self.outputs = outputs
+        self.launches = launches
+        self.device = device
+        self.reads = reads
+        self._lock = threading.Lock()
+        self._done = torch.cuda.Event()
+
+    def __call__(self, *, replays: int = 1, **inputs):
+        """Copy ``inputs`` into the static inputs of the same names (each
+        static input must be given, on the graph's device), replay
+        ``replays`` times, and return copies of the outputs, all on the
+        caller's current stream."""
+        if set(inputs) != set(self.inputs):
+            raise ValueError(f"the graph takes {sorted(self.inputs)}, got "
+                             f"{sorted(inputs)}")
+        if _cuda_device(inputs.values()) != self.device:
+            raise ValueError(f"the graph was captured on {self.device}, got "
+                             f"tensors on {_cuda_device(inputs.values())}")
+        stream = torch.cuda.current_stream(self.device)
+        with self._lock:
+            stream.wait_event(self._done)
+            for name, value in inputs.items():
+                self.inputs[name].copy_(value)
+            for _ in range(replays):
+                self.graph.replay()
+            out = _map(torch.clone, self.outputs)
+            self._done.record(stream)
+            for _ in range(replays):
+                gcl_kernel.credit_launches(self.launches)
+        return out
+
+
+def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
+            warmup: Optional[Callable] = None) -> CapturedGraph:
+    """Record ``fn(**inputs)`` into a CUDA graph over static copies of
+    ``inputs`` (CUDA tensors, all on one device), after one eager call of
+    ``warmup`` (default ``fn``) on the same copies. ``fn`` must return a
+    tensor or a tuple of tensors, make no host synchronisation and read no
+    CPU tensor. Raises if the capture fails."""
+    device = _cuda_device(inputs.values())
+    static = {name: t.clone() for name, t in inputs.items()}
+    caller = torch.cuda.current_stream(device)
+    side = _side_stream(device)
+    side.wait_stream(caller)
+    with torch.cuda.stream(side):
+        (warmup or fn)(**static)
+        graph = torch.cuda.CUDAGraph()
+        tally = gcl_kernel.captured_launches()
+        before = dict(tally)
+        kept = gcl_kernel.captured_reads()
+        n_kept = len(kept)
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            outputs = fn(**static)
+        except BaseException:
+            del kept[n_kept:]
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass     # the capture was already invalidated: report fn's
+            raise
+        graph.capture_end()
+    caller.wait_stream(side)
+    launches = {k: n - before.get(k, 0) for k, n in tally.items()
+                if n != before.get(k, 0)}
+    reads = tuple(kept[n_kept:])
+    del kept[n_kept:]
+    return CapturedGraph(graph, static, outputs, launches, device, reads)
+
+
+class GraphCache:
+    """Captured graphs by key, at most ``maxsize`` (least recently used
+    first out), each valid while the ``token`` it was captured under holds
+    (e.g. the weights' storage and version). The twin of the JAX
+    generator's dicts of compiled trajectories plus jit's retrace per
+    shape."""
+
+    def __init__(self, maxsize: int):
+        self.maxsize = maxsize
+        #: Graphs captured through this cache since it was made.
+        self.captures = 0
+        self._graphs: "OrderedDict[Hashable, tuple]" = OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def get(self, key: Hashable, token: Hashable,
+            make: Callable[[], CapturedGraph]) -> CapturedGraph:
+        """The graph under ``key`` if it was captured under ``token``, else
+        ``make()``'s, kept under ``key``."""
+        with self._lock:
+            hit = self._graphs.get(key)
+            if hit is not None and hit[0] == token:
+                self._graphs.move_to_end(key)
+                return hit[1]
+        graph = make()
+        with self._lock:
+            self.captures += 1
+            self._graphs[key] = (token, graph)
+            self._graphs.move_to_end(key)
+            while len(self._graphs) > self.maxsize:
+                self._graphs.popitem(last=False)
+        return graph

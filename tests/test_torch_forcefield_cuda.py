@@ -123,3 +123,34 @@ def test_optimize_geometry_float32_on_the_card(card):
         assert np.abs(a.coords - b.coords).max() <= FF_BAR
         moved = max(moved, np.abs(b.coords - m.coords).max())
     assert moved > 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_relax_graph_is_the_loop(card, dtype):
+    """On the card ``relax`` replays a captured CUDA graph of one step: its
+    coordinates and branch history equal the loop of the same steps
+    (``fire_steps``) bit for bit, at the capture and at a replay; the
+    card's gradient sums in a fixed order, so the loop repeats itself."""
+    mols = _copies(_REFERENCE, 16, 2, (0.05, 0.3))
+    n_pad = tff._pad8(max(m.num_atoms for m in mols))
+    ff = tff.to_device(tff.build_ff_batch(mols, n_pad), "cuda", dtype)
+    x0 = np.zeros((len(mols), n_pad, 3))
+    for b, m in enumerate(mols):
+        x0[b, :m.num_atoms] = m.coords
+    x0 = torch.tensor(x0, device="cuda", dtype=dtype)
+    with torch.no_grad():
+        graphed = []
+        for _ in range(2):
+            log = []
+            graphed.append((tff.relax(x0, ff, uphill_log=log),
+                            torch.stack(log)))
+        loops = []
+        for _ in range(2):
+            log = []
+            x = tff.fire_steps(x0, ff, 200,
+                               lambda k, uphill: log.append(uphill))
+            loops.append((x, torch.stack(log)))
+    for x, up in graphed + loops[1:]:
+        assert torch.equal(x, loops[0][0])
+        assert torch.equal(up, loops[0][1])
+    assert (loops[0][0] - x0).abs().max() > 1e-2

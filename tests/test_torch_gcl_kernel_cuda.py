@@ -138,7 +138,9 @@ def test_f32_w1_is_packed_once_per_weight(card):
 def test_inpaint_through_the_kernel_equals_plain(card, monkeypatch):
     """A short float32 inpaint (T = 2) at full width: every edge pass in the
     kernel against the same trajectory, same draws, through the plain
-    version; x within 1e-3, the same atom types."""
+    version; x within 1e-3, the same atom types. The kernel's run is a
+    replay of the trajectory's captured graph (the first call captures it),
+    whose launches are credited; the plain run is the sampler's loop."""
     from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
                                                          EGNNConfig)
     from ml_conformer_generator_tpu_torch.diffusion.edm import EDMSampler
@@ -167,12 +169,14 @@ def test_inpaint_through_the_kernel_equals_plain(card, monkeypatch):
         g = torch.Generator(device="cuda").manual_seed(5)
         return sampler.inpaint(g, gamma, nm, em, ctx, z_known, fixed_mask)
 
+    run()                                  # captures the graph
     gk.reset_launch_counts()
     xk, hk = run()
     torch.cuda.synchronize()
     assert gk.LAUNCHES == {"gcl": 18 * (2 * T + 1), "coord": 9 * (2 * T + 1),
                            "gcl_bwd": 0, "coord_bwd": 0}
     monkeypatch.setattr(gk, "fused_edge_pass", gk.fused_edge_pass_reference)
+    monkeypatch.setattr(sampler, "_graphed", False)
     xp, hp = run()
     assert torch.isfinite(xk).all()
     torch.testing.assert_close(xk, xp, atol=1e-3, rtol=1e-3)
@@ -478,3 +482,126 @@ def test_registered_op_is_the_kernel(card, mode, dtype):
     assert gk.LAUNCHES[mode] == 1
     assert got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("trajectory", ["generate", "inpaint", "merge"])
+def test_trajectory_graph_is_the_loop(card, trajectory, dtype):
+    """Each trajectory on the card runs as one captured CUDA graph; two
+    requests in a row from one generator equal the sampler's loop run from
+    an equally seeded generator bit for bit (x and h), and leave both
+    generators in one state. The first request captures (its warm-up, one
+    reverse step and the decode, launches for real); the second replays,
+    and the launches it is credited are the loop's exactly."""
+    from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
+                                                         EGNNConfig)
+    from ml_conformer_generator_tpu_torch.diffusion.edm import EDMSampler
+    from ml_conformer_generator_tpu_torch.diffusion.schedule import \
+        gamma_schedule
+    from ml_conformer_generator_tpu_torch.models.egnn import EGNNDynamics
+    from ml_conformer_generator_tpu_torch.utils.fragments import \
+        prepare_fragment
+    from ml_conformer_generator_tpu_torch.utils.masks import prepare_masks
+
+    T, B, N, blocks = 3, 4, 24, 2
+    cfg = EGNNConfig(hidden_nf=64, n_blocks=blocks, compute_dtype=dtype)
+    dyn = EGNNDynamics(cfg, torch.Generator().manual_seed(0))
+    dyn = dyn.to("cuda", getattr(torch, dtype)).eval()
+    sampler = EDMSampler(dyn, DiffusionConfig(timesteps=T))
+    nm, em = prepare_masks(torch.tensor([24, 20, 22, 17], device="cuda"), N)
+    rng = np.random.default_rng(1)
+    ctx = torch.tensor(rng.standard_normal((B, N, 3)), device="cuda",
+                       dtype=torch.float32) * nm
+    frag_x = torch.tensor(rng.standard_normal((6, 3)), device="cuda",
+                          dtype=torch.float32)
+    frag_h = torch.eye(8, device="cuda")[torch.tensor([0, 0, 1, 2, 0, 3])]
+    z_known, fixed_mask = prepare_fragment(B, frag_x, frag_h, N, 15)
+    gamma = torch.from_numpy(gamma_schedule(T))
+
+    def request(g):
+        if trajectory == "generate":
+            return sampler.generate(g, gamma, nm, em, ctx)
+        if trajectory == "inpaint":
+            return sampler.inpaint(g, gamma, nm, em, ctx, z_known, fixed_mask)
+        return sampler.merge_fragments(g, gamma, nm, em, fixed_mask, ctx,
+                                       z_known, diffusion_level=2)
+
+    forwards = {"generate": T + 1, "inpaint": 2 * T + 1,
+                "merge": 3 + 1}[trajectory]
+    g_graph = torch.Generator(device="cuda").manual_seed(5)
+    runs = {"graph": [], "loop": []}
+    for k in range(2):
+        gk.reset_launch_counts()
+        runs["graph"].append(request(g_graph))
+        torch.cuda.synchronize()
+        if k == 1:
+            assert gk.LAUNCHES == {"gcl": 2 * blocks * forwards,
+                                   "coord": blocks * forwards,
+                                   "gcl_bwd": 0, "coord_bwd": 0}
+    assert len(sampler._graphs) == 1
+    sampler._graphed = False
+    g_loop = torch.Generator(device="cuda").manual_seed(5)
+    for _ in range(2):
+        runs["loop"].append(request(g_loop))
+    for (xg, hg), (xl, hl) in zip(runs["graph"], runs["loop"]):
+        assert torch.isfinite(xl).all()
+        assert torch.equal(xg, xl) and torch.equal(hg, hl)
+    assert torch.equal(g_graph.get_state(), g_loop.get_state())
+
+
+def test_a_graph_outlives_the_backward_pack(card):
+    """A float32 sampler's captured trajectory reads each block's packed W1
+    by address. A forward and backward through the same module (which adds
+    W1^T's pack to each weight's cache entry), then tensors of the packs'
+    size written full of NaN, leave the graph's replay equal to the loop
+    bit for bit: the forward packs are the ones the graph holds."""
+    from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
+                                                         EGNNConfig)
+    from ml_conformer_generator_tpu_torch.diffusion.edm import EDMSampler
+    from ml_conformer_generator_tpu_torch.diffusion.schedule import \
+        gamma_schedule
+    from ml_conformer_generator_tpu_torch.models.egnn import EGNNDynamics
+    from ml_conformer_generator_tpu_torch.utils.masks import prepare_masks
+
+    T, B, N = 3, 4, 24
+    dyn = EGNNDynamics(EGNNConfig(hidden_nf=64, n_blocks=2,
+                                  compute_dtype="float32"),
+                       torch.Generator().manual_seed(0)).to("cuda").eval()
+    sampler = EDMSampler(dyn, DiffusionConfig(timesteps=T))
+    nm, em = prepare_masks(torch.tensor([24, 20, 22, 17], device="cuda"), N)
+    ctx = torch.randn(B, N, 3, device="cuda") * nm
+    gamma = torch.from_numpy(gamma_schedule(T))
+
+    def request(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return sampler.generate(g, gamma, nm, em, ctx)
+
+    request(5)                                     # captures the graph
+    (graph,) = [entry[1] for entry in sampler._graphs._graphs.values()]
+    assert graph.reads
+    packs = gk.PACKS
+    t = torch.full((B,), 0.5, device="cuda")
+    xh = torch.randn(B, N, 11, device="cuda") * nm
+    with torch.enable_grad():
+        dyn(t, xh, nm, em, ctx).square().sum().backward()
+    assert gk.PACKS > packs                        # W1^T packed
+    junk = [torch.full_like(p, float("nan")) for p in graph.reads
+            for _ in range(4)]
+    x_graph, h_graph = request(7)
+    sampler._graphed = False
+    x_loop, h_loop = request(7)
+    del junk
+    assert torch.isfinite(x_loop).all()
+    assert torch.equal(x_graph, x_loop) and torch.equal(h_graph, h_loop)
+
+
+def test_a_graph_refuses_tensors_off_its_device(card):
+    """A captured graph copies its inputs in on its own device: a tensor
+    elsewhere raises rather than being moved."""
+    from ml_conformer_generator_tpu_torch.utils.cuda_graph import capture
+
+    graph = capture(lambda x: x * 2, {"x": torch.ones(3, device="cuda")})
+    assert torch.equal(graph(x=torch.full((3,), 2.0, device="cuda")),
+                       torch.full((3,), 4.0, device="cuda"))
+    with pytest.raises(ValueError):
+        graph(x=torch.ones(3))
