@@ -24,7 +24,10 @@ warm-up (the first reverse step and the decode) launches for real
 (``WARMUP_FORWARDS``); later requests replay it, each replay credited with
 the launches its capture recorded. So the launch checks count a capture's
 warm-up where a request captures, and the kernel-against-plain runs take
-the sampler's loop for their plain side. Phases:
+the sampler's loop for their plain side. A train step on one card, the EMA
+update and AdjMatSeer's step are captured graphs too: a run's first step
+is the capture's warm-up, made for real, and the later steps replay it
+(credited with its launches and W1 packs). Phases:
 
 1. environment: device, name and power limit from nvidia-smi; TF32 off;
 2. build: ``nvcc`` for sm_90a, with the build time, and per source ptxas's
@@ -95,7 +98,9 @@ the sampler's loop for their plain side. Phases:
     20%), the step's time with and without remat and its split; ``train``
     for one epoch with EMA and cosine LR, its checkpoint loaded into a
     generator that serves one request (27 launches a forward, no backward);
-    ``train_adj_mat_seer`` on the card (its loss drops);
+    ``train_adj_mat_seer`` on the card (its loss drops). Since phase 21's
+    graphs the kernel step's first call is its capture's warm-up and its
+    second a replay, credited with the capture's launches and packs;
 14. j-slab kernels (the edge-sharded EGNN's): the float32 forward in both
     modes at (B, N, N_l) = (64, 32, 16), (64, 32, 8), (64, 40, 20),
     (5, 40, 20) and (8, 128, 64), the backward at (64, 40, 20), (64, 39,
@@ -187,7 +192,23 @@ the sampler's loop for their plain side. Phases:
     fresh captures; (20f) one graphed request traced and read as 19d;
     (20g) what the graphs hold on the card: the reserved memory across each
     capture (generate, inpaint, IFM and relax at 64 and at 200 samples, the
-    most the app takes) and across a sampler cache filled to its bound.
+    most the app takes) and across a sampler cache filled to its bound;
+21. the one-program train steps, the twin of JAX's jitted step, EMA update
+    and AdjMatSeer step: (21a) six full-width float32 steps (remat) with
+    the EMA after each and a warmup-cosine through its warmup, through the
+    graphs and through the loop (``train_loop``, the comparison's own
+    route), at (64, 39) on phase 13's corpus and at the overfit twin's
+    (32, 39): losses, parameters, gradients, AdamW moments and counts, EMA,
+    learning rate and generator bit for bit; (21b) every step 36 / 18
+    forward and 18 / 9 backward launches and 27 W1 packs, a replay's
+    credited; (21c) an eager forward on the live model after its replays
+    (every W1 packed afresh) and every kernel call of a replayed step held
+    against the plain version; (21d) the step with its EMA, graph and loop
+    in turns at both shapes: median and range, the card's busy share, the
+    captures' seconds and the reserved memory across them; (21e)
+    ``train_adj_mat_seer`` graph against loop (full batch in turns, and
+    sampled) bit for bit and timed, and the overfit twin's training at
+    ``TWIN_STEPS`` through each route.
 
 Files it writes (ONNX, ``.npz``, STL, ``.pt2``, the kernel cache, phase
 18's weights and report, phase 19's report and trace) go to
@@ -404,6 +425,21 @@ def edge_inputs(torch, B, N, H, dtype, sizes, seed):
                 w1=r(H, H, scale=H ** -0.5), b1=r(H, scale=0.1),
                 wh=r(H, scale=H ** -0.5), bh=r(1))
     return args, nm.cuda()
+
+
+@contextlib.contextmanager
+def train_loop():
+    """Within: the train step, the EMA update and AdjMatSeer's step run as
+    the loop on the card, the comparison's own route (the training
+    package's switch; nothing else reaches the loop with CUDA tensors on
+    the (1, 1) mesh)."""
+    from ml_conformer_generator_tpu_torch.training import step as tstep
+
+    tstep._graphed = False
+    try:
+        yield
+    finally:
+        tstep._graphed = True
 
 
 @contextlib.contextmanager
@@ -1705,7 +1741,7 @@ def train_step_phase(torch, gk, ds, n_learn=30):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches, packs = dict(gk.LAUNCHES), gk.PACKS
-    with plain_edge_pass(gk):
+    with plain_edge_pass(gk), train_loop():
         mp = step(model_p, state_p,
                   torch.Generator(device="cuda").manual_seed(5), batch,
                   gamma)
@@ -1717,7 +1753,8 @@ def train_step_phase(torch, gk, ds, n_learn=30):
                               model_p.parameters()):
         rel[name] = ((pk.grad - pp.grad).norm() / pp.grad.norm()).item()
     worst = max(rel, key=rel.get)
-    # a second kernel step: the optimizer moved every W1, so each repacks
+    # a second kernel step, a replay of the step's graph: the optimizer
+    # moved every W1, so each repacks inside the graph
     gk.reset_pack_count()
     step(model_k, state_k, torch.Generator(device="cuda").manual_seed(6),
          batch, gamma)
@@ -2896,46 +2933,36 @@ def held_against_plain(torch, gk):
     """Within: each launch of a forward or backward edge kernel is held
     against its plain version on the same inputs, the forward at
     TOLERANCE's bar for its type and mode, the backward at
-    ``backward_bars``'. The plain versions launch nothing. Yields a record
-    of the calls and the worst errors, by kernel."""
+    ``backward_bars``'. The plain versions launch nothing. A launch under a
+    CUDA graph's capture cannot be read then: its inputs and outputs are
+    copied inside the graph, on every replay, into the record's "stash",
+    which ``held_replay`` holds after a replay. Yields a record of the
+    calls and the worst errors, by kernel."""
     launch_forward, launch_backward = gk._launch_forward, gk._launch_backward
     rec = {}
 
     def forward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *, mode, norm, **kw):
         out = launch_forward(u, v, ef, em, w_e, b0, w1, b1, wh, bh,
                              mode=mode, norm=norm, **kw)
-        ref = gk.fused_edge_pass_reference(u, v, ef, em, w_e, b0, w1, b1,
-                                           wh, bh, mode=mode,
-                                           norm=norm).float()
-        name = str(u.dtype).replace("torch.", "")
-        atol, rtol = TOLERANCE[name, mode]
-        err = (out - ref).abs()
-        r = rec.setdefault(f"{name}_{mode}", {"calls": 0, "max_abs_err": 0.0,
-                                              "ref_max_abs": 0.0,
-                                              "atol": atol, "rtol": rtol})
-        r["calls"] += 1
-        r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
-        r["ref_max_abs"] = max(r["ref_max_abs"], ref.abs().max().item())
-        check(torch.isfinite(out).all().item(), f"non-finite {name} {mode}")
-        check((err - atol - rtol * ref.abs()).max().item() <= 0.0,
-              f"{name} {mode} kernel disagrees with plain: {r}")
+        args = (u, v, ef, em, w_e, b0, w1, b1, wh, bh)
+        if torch.cuda.is_current_stream_capturing():
+            rec.setdefault("stash", []).append(
+                (mode, norm, _copies(torch, args), out.clone(), None))
+        else:
+            _hold_forward(torch, gk, rec, mode, norm, args, out)
         return out
 
     def backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, *, mode, norm,
                  w1p):
         got = launch_backward(u, v, ef, em, w_e, b0, w1, b1, wh, bh, g,
                               mode=mode, norm=norm, w1p=w1p)
-        ref = gk.fused_edge_pass_backward_reference(
-            u, v, ef, em, w_e, b0, w1, b1, wh, bh, g, mode=mode, norm=norm)
-        _, elem, sums = backward_bars(torch, got, ref, mode,
-                                      "backward kernel against plain")
-        r = rec.setdefault(f"float32_{mode}_bwd", {
-            "calls": 0, "max_abs_err": 0.0, "weight_sums_max_rel_err": 0.0,
-            "atol": BWD_ATOL, "rtol": BWD_RTOL})
-        r["calls"] += 1
-        r["max_abs_err"] = max(r["max_abs_err"], elem)
-        r["weight_sums_max_rel_err"] = max(r["weight_sums_max_rel_err"],
-                                           sums)
+        args = (u, v, ef, em, w_e, b0, w1, b1, wh, bh)
+        if torch.cuda.is_current_stream_capturing():
+            rec.setdefault("stash", []).append(
+                (mode, norm, _copies(torch, args), _copies(torch, got),
+                 g.clone()))
+        else:
+            _hold_backward(torch, gk, rec, mode, norm, args, got, g)
         return got
 
     gk._launch_forward, gk._launch_backward = forward, backward
@@ -2944,6 +2971,54 @@ def held_against_plain(torch, gk):
     finally:
         gk._launch_forward, gk._launch_backward = (launch_forward,
                                                    launch_backward)
+
+
+def _copies(torch, tensors):
+    return tuple(None if t is None else t.clone() for t in tensors)
+
+
+def _hold_forward(torch, gk, rec, mode, norm, args, out, prefix=""):
+    """One forward kernel call's output against the plain version."""
+    ref = gk.fused_edge_pass_reference(*args, mode=mode, norm=norm).float()
+    name = str(args[0].dtype).replace("torch.", "")
+    atol, rtol = TOLERANCE[name, mode]
+    err = (out - ref).abs()
+    r = rec.setdefault(f"{prefix}{name}_{mode}", {
+        "calls": 0, "max_abs_err": 0.0, "ref_max_abs": 0.0, "atol": atol,
+        "rtol": rtol})
+    r["calls"] += 1
+    r["max_abs_err"] = max(r["max_abs_err"], err.max().item())
+    r["ref_max_abs"] = max(r["ref_max_abs"], ref.abs().max().item())
+    check(torch.isfinite(out).all().item(), f"non-finite {name} {mode}")
+    check((err - atol - rtol * ref.abs()).max().item() <= 0.0,
+          f"{name} {mode} kernel disagrees with plain: {r}")
+
+
+def _hold_backward(torch, gk, rec, mode, norm, args, got, g, prefix=""):
+    """One backward kernel call's gradients against the plain backward."""
+    ref = gk.fused_edge_pass_backward_reference(*args, g, mode=mode,
+                                                norm=norm)
+    _, elem, sums = backward_bars(torch, got, ref, mode,
+                                  "backward kernel against plain")
+    r = rec.setdefault(f"{prefix}float32_{mode}_bwd", {
+        "calls": 0, "max_abs_err": 0.0, "weight_sums_max_rel_err": 0.0,
+        "atol": BWD_ATOL, "rtol": BWD_RTOL})
+    r["calls"] += 1
+    r["max_abs_err"] = max(r["max_abs_err"], elem)
+    r["weight_sums_max_rel_err"] = max(r["weight_sums_max_rel_err"], sums)
+
+
+def held_replay(torch, gk, rec):
+    """After a replay of a graph captured within ``held_against_plain``:
+    each kernel call its capture recorded, held against the plain version
+    on the inputs that replay gave it (record keys "replayed_...")."""
+    torch.cuda.synchronize()
+    for mode, norm, args, out, g in rec.pop("stash", []):
+        if g is None:
+            _hold_forward(torch, gk, rec, mode, norm, args, out, "replayed_")
+        else:
+            _hold_backward(torch, gk, rec, mode, norm, args, out, g,
+                           "replayed_")
 
 
 def fixed_objective_loss(torch, model, batch, gamma, seed=11):
@@ -3013,6 +3088,8 @@ def validity_phase(torch, gk, smi, workdir):
         step(init, state, torch.Generator(device="cuda").manual_seed(3),
              batch, gamma)
         torch.cuda.synchronize()
+    # the step's capture recorded its calls too; 21c holds a replay's
+    held_step.pop("stash", None)
     step_launches = dict(gk.LAUNCHES)
     want_step = launch_counts(4 * blocks, 2 * blocks, 2 * blocks, blocks)
     check(step_launches == want_step,
@@ -3806,6 +3883,391 @@ def graphs_phase(torch, gk, gens, reference, kw, fragment, smi, workdir):
     return recs
 
 
+# -- 21. the one-program train steps ---------------------------------------------
+
+# Phase 21a's steps, graph against loop, with the EMA after each, through the
+# warmup of a warmup-cosine schedule of (total steps, warmup steps).
+TRAIN_GRAPH_STEPS = 6
+TRAIN_SCHEDULE = (12, 2)
+# Phase 21d's timed turns: this many of each route (graph, loop, loop,
+# graph, ...), TRAIN_TURN_STEPS steps each.
+TRAIN_TURNS = 4
+TRAIN_TURN_STEPS = 4
+# Phase 21e's runs of the overfit twin's training, graph and loop: (EDM
+# steps, bond steps); its defaults (1500, 600) would take minutes a route.
+TWIN_STEPS = (200, 200)
+
+
+def train_batches(ds, B, n, n_pad=None):
+    """``n`` batches of ``B`` molecules of ``ds``, epoch after epoch."""
+    import numpy as np
+
+    from ml_conformer_generator_tpu_torch.training import batches
+
+    out, epoch = [], 0
+    while len(out) < n:
+        out += list(batches(ds, B, rng=np.random.default_rng(epoch),
+                            n_pad=n_pad))
+        epoch += 1
+    return out[:n]
+
+
+def train_setup(torch, seed, schedule=(0, 0)):
+    """A full-width float32 denoiser from ``seed`` on the card, its EMA
+    copy and its AdamW state (lr 1e-4; ``schedule``: (total steps, warmup
+    steps) of a warmup-cosine, (0, 0) constant)."""
+    import copy
+
+    from ml_conformer_generator_tpu_torch.config import EGNNConfig
+    from ml_conformer_generator_tpu_torch.models.egnn import EGNNDynamics
+    from ml_conformer_generator_tpu_torch.training import (init_train_state,
+                                                           make_optimizer)
+
+    model = EGNNDynamics(EGNNConfig(),
+                         torch.Generator().manual_seed(seed)).cuda()
+    ema = copy.deepcopy(model).requires_grad_(False)
+    state = init_train_state(model, make_optimizer(
+        lr=1e-4, total_steps=schedule[0], warmup_steps=schedule[1]))
+    return model, ema, state
+
+
+def train_step_and_ema(torch, step, model, ema, state, gen, batch, gamma, t):
+    """One train step and the EMA update after it, synchronised: (metrics,
+    seconds)."""
+    from ml_conformer_generator_tpu_torch.training.loop import ema_update_
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = step(model, state, gen, batch, gamma)
+    ema_update_(ema, model, 0.999, t)
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def train_graph_against_loop(torch, gk, ds, B, n_pad, name):
+    """21a-b: TRAIN_GRAPH_STEPS full-width steps (420 x 9, float32, remat)
+    with the EMA update after each and a warmup-cosine through its warmup,
+    through the graphs and through the loop from the same weights, batches
+    and draws: every step's loss and mean t, and after the last the
+    parameters, gradients, AdamW moments and counts, the EMA, the learning
+    rate and the generator, bit for bit; every step 36 / 18 forward and 18
+    / 9 backward launches and 27 W1 packs, a replay's credited from what
+    its capture recorded. Returns the record and the graphed (model, state,
+    step, batches, gamma)."""
+    from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
+                                                         EGNNConfig)
+    from ml_conformer_generator_tpu_torch.diffusion.schedule import \
+        gamma_schedule
+    from ml_conformer_generator_tpu_torch.parallel import make_mesh
+    from ml_conformer_generator_tpu_torch.training import make_train_step
+
+    cfg, diff = EGNNConfig(), DiffusionConfig()
+    blocks = cfg.n_blocks
+    gamma = torch.from_numpy(gamma_schedule(diff.timesteps))
+    batches = train_batches(ds, B, TRAIN_GRAPH_STEPS, n_pad)
+    step = make_train_step(make_mesh(device="cuda"), cfg, diff)
+    runs = {}
+    for route in ("graph", "loop"):
+        model, ema, state = train_setup(torch, 31, TRAIN_SCHEDULE)
+        lr = state.optimizer.param_groups[0]["lr"]
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        run = runs[route] = {"model": model, "ema": ema, "state": state,
+                             "metrics": [], "launches": [], "packs": [],
+                             "s": [], "lr": []}
+        with train_loop() if route == "loop" else contextlib.nullcontext():
+            for t, batch in enumerate(batches):
+                gk.reset_launch_counts()
+                gk.reset_pack_count()
+                m, secs = train_step_and_ema(torch, step, model, ema, state,
+                                             gen, batch, gamma, t)
+                run["metrics"].append(m)
+                run["launches"].append(dict(gk.LAUNCHES))
+                run["packs"].append(gk.PACKS)
+                run["s"].append(secs)
+                run["lr"].append(float(lr))
+        run["lr_same_tensor"] = state.optimizer.param_groups[0]["lr"] is lr
+        run["generator"] = gen.get_state()
+    g, l = runs["graph"], runs["loop"]
+    pairs = list(zip(g["model"].parameters(), l["model"].parameters()))
+    moments = [(g["state"].optimizer.state[p][k],
+                l["state"].optimizer.state[q][k])
+               for p, q in pairs for k in ("exp_avg", "exp_avg_sq", "step")]
+    equal = {
+        "loss_and_mean_t": all(
+            torch.equal(a[k], b[k]) for a, b in zip(g["metrics"],
+                                                     l["metrics"])
+            for k in ("loss", "mean_t")),
+        "parameters": all(torch.equal(p, q) for p, q in pairs),
+        "gradients": all(torch.equal(p.grad, q.grad) for p, q in pairs),
+        "adamw_state": all(torch.equal(a, b) for a, b in moments),
+        "ema": all(torch.equal(a, b) for a, b in zip(
+            g["ema"].parameters(), l["ema"].parameters())),
+        "lr": g["lr"] == l["lr"],
+        "generator": torch.equal(g["generator"], l["generator"])}
+    want = launch_counts(4 * blocks, 2 * blocks, 2 * blocks, blocks)
+    rec = {"phase": "train_graph", "case": name, "B": B,
+           "N": int(batches[0]["x"].shape[1]), "steps": len(batches),
+           "schedule": TRAIN_SCHEDULE, "bit_equal": equal,
+           "lr_by_step": g["lr"],
+           "losses": [float(m["loss"]) for m in g["metrics"]],
+           "lr_same_tensor": g["lr_same_tensor"],
+           "launches": {r: runs[r]["launches"] for r in runs},
+           "w1_packs": {r: runs[r]["packs"] for r in runs},
+           "step_and_ema_s": {r: runs[r]["s"] for r in runs}}
+    log(f"[train-graph] {json.dumps(rec)}")
+    check(all(equal.values()), f"{name}: graph and loop differ: {equal}")
+    check(g["lr_same_tensor"], f"{name}: the schedule replaced the lr tensor")
+    check(all(n == want for r in runs for n in runs[r]["launches"]),
+          f"{name}: launches a step {rec['launches']}, expected {want}")
+    check(all(n == 3 * blocks for r in runs for n in runs[r]["packs"]),
+          f"{name}: W1 packs a step {rec['w1_packs']}")
+    check(len(set(g["lr"][:TRAIN_SCHEDULE[1] + 2])) > 2,
+          f"{name}: the schedule did not move: {g['lr']}")
+    del runs["loop"], l
+    return rec, (g["model"], g["state"], step, batches, gamma)
+
+
+def train_graph_held(torch, gk, graphed, ds, B, n_pad):
+    """21c: (i) an eager forward on the live model after its replays: every
+    W1 packed afresh (the replays moved the weights' versions) and each
+    kernel call held against the plain version; (ii) a fresh model's first
+    step (the capture's warm-up) and second (a replay) within
+    ``held_against_plain``: every kernel call of the warm-up, and every call
+    the replay made (36 / 18 forward, 18 / 9 backward), held against the
+    plain version on that replay's inputs. Returns the record."""
+    from ml_conformer_generator_tpu_torch.models.egnn import dynamics_forward
+
+    model, _, step, batches, gamma = graphed
+    b = {k: torch.as_tensor(v, device="cuda") for k, v in batches[0].items()}
+    gk.reset_pack_count()
+    gk.reset_launch_counts()
+    with torch.no_grad(), held_against_plain(torch, gk) as eager:
+        dynamics_forward(model, torch.full((B,), 0.5, device="cuda"),
+                         torch.cat([b["x"], b["h"]], -1), b["node_mask"],
+                         b["edge_mask"], b["context"], model.cfg)
+        torch.cuda.synchronize()
+    eager_packs = gk.PACKS
+    blocks = model.cfg.n_blocks
+    check(eager_packs == 3 * blocks,
+          f"the eager forward after replays packed {eager_packs} W1")
+    check(sorted(eager) == ["float32_coord", "float32_gcl"],
+          f"kernels held in the eager forward: {sorted(eager)}")
+
+    fresh, ema, state = train_setup(torch, 32)
+    with held_against_plain(torch, gk) as held:
+        for t, batch in enumerate(batches[:2]):
+            train_step_and_ema(torch, step, fresh, ema, state,
+                               torch.Generator(device="cuda").manual_seed(t),
+                               batch, gamma, t)
+        held_replay(torch, gk, held)
+    calls = {k: v["calls"] for k, v in held.items()}
+    want = {"float32_gcl": 4 * blocks, "float32_coord": 2 * blocks,
+            "float32_gcl_bwd": 2 * blocks, "float32_coord_bwd": blocks}
+    want.update({f"replayed_{k}": n for k, n in want.items()})
+    rec = {"phase": "train_graph_held", "eager_forward_after_replays": eager,
+           "eager_forward_w1_packs": eager_packs, "step_calls": held}
+    log(f"[train-graph] {json.dumps(rec)}")
+    check(calls == want, f"kernel calls held in the warm-up and the replay: "
+          f"{calls}, expected {want}")
+    del fresh, ema, state
+    return rec
+
+
+def train_graph_timing(torch, gk, ds, B, n_pad, name):
+    """21d: the step with the EMA after it, graph and loop, TRAIN_TURNS
+    turns of TRAIN_TURN_STEPS steps each, in turns: median and range of a
+    step's seconds; the card's busy share over TRAIN_TURN_STEPS profiled
+    steps of each; the graphed route's first step (the captures of the step
+    and of the EMA, their warm-ups), each capture's seconds, and the
+    allocator's reserved memory across that first step (its cache emptied
+    before and after). Returns the record."""
+    import statistics
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
+                                                         EGNNConfig)
+    from ml_conformer_generator_tpu_torch.diffusion.schedule import \
+        gamma_schedule
+    from ml_conformer_generator_tpu_torch.parallel import make_mesh
+    from ml_conformer_generator_tpu_torch.training import make_train_step
+    from ml_conformer_generator_tpu_torch.utils import cuda_graph
+
+    cfg, diff = EGNNConfig(), DiffusionConfig()
+    gamma = torch.from_numpy(gamma_schedule(diff.timesteps))
+    batches = train_batches(ds, B, TRAIN_TURN_STEPS, n_pad)
+    step = make_train_step(make_mesh(device="cuda"), cfg, diff)
+    routes = {r: train_setup(torch, 33) for r in ("graph", "loop")}
+    gens = {r: torch.Generator(device="cuda").manual_seed(5) for r in routes}
+    counter = {r: 0 for r in routes}
+
+    def run(route, n=1):
+        model, ema, state = routes[route]
+        secs = []
+        with train_loop() if route == "loop" else contextlib.nullcontext():
+            for k in range(n):
+                _, t = train_step_and_ema(
+                    torch, step, model, ema, state, gens[route],
+                    batches[k % len(batches)], gamma, counter[route])
+                counter[route] += 1
+                secs.append(t)
+        return secs
+
+    capture, captured = cuda_graph.capture, []
+
+    def timed_capture(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph = capture(*a, **k)
+        torch.cuda.synchronize()
+        captured.append(time.perf_counter() - t0)
+        return graph
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    cuda_graph.capture = timed_capture
+    try:
+        first = run("graph")[0]
+    finally:
+        cuda_graph.capture = capture
+    torch.cuda.empty_cache()
+    reserved1 = torch.cuda.memory_reserved()
+    loop_first = run("loop")[0]
+    order = (["graph", "loop", "loop", "graph"] * TRAIN_TURNS)[:2 * TRAIN_TURNS]
+    turns = {"graph": [], "loop": []}
+    for route in order:
+        turns[route] += run(route, TRAIN_TURN_STEPS)
+    busy = {}
+    for route in ("graph", "loop"):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(route, TRAIN_TURN_STEPS)
+            wall = time.perf_counter() - t0
+        busy[route] = {"wall_s": wall, "device_busy_s": device_busy_s(torch, p),
+                       "busy_share": device_busy_s(torch, p) / wall}
+
+    def spread(values):
+        return {"median": statistics.median(values), "min": min(values),
+                "max": max(values)}
+
+    rec = {"phase": "train_graph_timing", "case": name, "B": B,
+           "N": int(batches[0]["x"].shape[1]), "turns": TRAIN_TURNS,
+           "steps_a_turn": TRAIN_TURN_STEPS, "order": order,
+           "step_and_ema_s": {r: spread(v) for r, v in turns.items()},
+           "molecules_per_s": {r: B / statistics.median(v)
+                               for r, v in turns.items()},
+           "profiled": busy, "first_graphed_step_s": first,
+           "first_loop_step_s": loop_first, "captures_s": captured,
+           "reserved_across_first_step_mib": (reserved1 - reserved0) / 2**20}
+    log(f"[train-graph] {json.dumps(rec)}")
+    check(len(captured) == 2, f"{len(captured)} captures in the first graphed "
+          f"step, expected 2 (the step and the EMA)")
+    check(all(0.0 < b["busy_share"] <= 1.0 for b in busy.values()),
+          f"a busy share outside (0, 1]: {busy}")
+    del routes
+    return rec
+
+
+def bond_graph_phase(torch, twin_mols, corpus_mols):
+    """21e: ``train_adj_mat_seer`` (AdjMatSeer 2048) through its graph and
+    through the loop: full batch on the overfit twin's three molecules, 200
+    steps a run in turns (graph, loop, loop, graph), and sampled batches of
+    64 of phase 13's corpus, 20 steps a route: losses and weights bit for
+    bit, seconds a run."""
+    from ml_conformer_generator_tpu_torch.training import train_adj_mat_seer
+
+    def run(route, mols, steps, batch_size):
+        with train_loop() if route == "loop" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_adj_mat_seer(mols, steps=steps, lr=3e-4,
+                                     batch_size=batch_size, seed=0,
+                                     log_every=1, log_fn=lambda s: None,
+                                     device="cuda")
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rec = {"phase": "bond_graph"}
+    for case, mols, steps, batch_size, order in (
+            ("full", twin_mols, 200, 0, ("graph", "loop", "loop", "graph")),
+            ("sampled", corpus_mols, 20, TRAIN_B, ("graph", "loop"))):
+        runs = {"graph": [], "loop": []}
+        for route in order:
+            runs[route].append(run(route, mols, steps, batch_size))
+        (g, _), (l, _) = runs["graph"][0], runs["loop"][0]
+        equal = (g["history"] == l["history"] and all(
+            torch.equal(p, q) for p, q in zip(g["params"].parameters(),
+                                               l["params"].parameters())))
+        rec[case] = {"steps": steps, "batch_size": batch_size,
+                     "molecules": len(mols), "bit_equal": equal,
+                     "loss_first_last": [g["history"][0]["loss"],
+                                         g["history"][-1]["loss"]],
+                     "s": {r: [t for _, t in v] for r, v in runs.items()}}
+        check(equal, f"AdjMatSeer {case}: graph and loop differ")
+    log(f"[train-graph] {json.dumps(rec)}")
+    return rec
+
+
+def twin_training_phase(torch, smi, workdir):
+    """21e: the overfit twin's training (``train_models``: EDM with EMA and
+    a warmup-cosine, then AdjMatSeer) at TWIN_STEPS, through the graphs and
+    through the loop, one run each: its seconds a route. Returns the twin's
+    arguments and corpus (``build_corpus``'s molecules and training set)."""
+    steps, bond_steps = TWIN_STEPS
+    args = overfit.parse_args([
+        "--edm-steps", str(steps), "--bond-steps", str(bond_steps),
+        "--out", os.path.join(workdir, "overfit_turns"), "--device", "cuda"])
+    mols, train_mols, _ = overfit.build_corpus(args)
+    rec = {"phase": "twin_training", "edm_steps": steps,
+           "bond_steps": bond_steps}
+    for route in ("graph", "loop"):
+        with train_loop() if route == "loop" else contextlib.nullcontext():
+            out = overfit.train_models(args, mols, train_mols)
+        hist = out["history"]["edm"]
+        rec[route] = {"edm_train_s": out["edm_train_s"],
+                      "edm_steps": out["edm_steps"],
+                      "bond_train_s": out["bond_train_s"],
+                      "edm_loss_first_last": [hist[0]["loss"],
+                                              hist[-1]["loss"]]}
+    rec["nvidia_smi"] = smi
+    log(f"[train-graph] {json.dumps(rec)}")
+    check(rec["graph"]["edm_steps"] == rec["loop"]["edm_steps"] > 0,
+          f"twin runs: {rec}")
+    return args, mols, train_mols
+
+
+def train_graphs_phase(torch, gk, corpus, smi, workdir):
+    """Phase 21, the JAX package's jitted train steps on the card: (21a-b)
+    graph against loop at (64, 39) on phase 13's corpus and at the overfit
+    twin's (32, 39), with exact launches and packs; (21c) the eager forward
+    after replays and a replayed step's kernel calls, held; (21d) the timed
+    turns at both shapes; (21e) AdjMatSeer and the twin's training, graph
+    against loop. Returns the (64, 39) record of 21a."""
+    from ml_conformer_generator_tpu_torch.training import MoleculeDataset
+
+    t0 = time.perf_counter()
+    rec64, graphed = train_graph_against_loop(torch, gk, corpus, TRAIN_B,
+                                              TRAIN_N, "B64")
+    train_graph_held(torch, gk, graphed, corpus, TRAIN_B, TRAIN_N)
+    del graphed
+    args, twin_mols, twin_train = twin_training_phase(torch, smi, workdir)
+    twin_ds = MoleculeDataset(twin_train)
+    train_graph_against_loop(torch, gk, twin_ds, args.batch, None, "B32")
+    timing = [train_graph_timing(torch, gk, corpus, TRAIN_B, TRAIN_N, "B64"),
+              train_graph_timing(torch, gk, twin_ds, args.batch, None,
+                                 "B32")]
+    bond_graph_phase(torch, twin_mols, corpus.mols)
+    log(f"[train-graph] phase 21: {time.perf_counter() - t0:.1f} s; {smi}; "
+        + json.dumps({t["case"]: {"graph": t["step_and_ema_s"]["graph"],
+                                  "loop": t["step_and_ema_s"]["loop"],
+                                  "busy": {r: b["busy_share"] for r, b in
+                                           t["profiled"].items()}}
+                      for t in timing}))
+    return rec64
+
+
 # Run by ``--compare-train DIR`` in each of two checkouts, in a process of
 # its own: that checkout's backward call at the training shape and its
 # train step (phase 13), as one JSON line.
@@ -4170,6 +4632,10 @@ def main() -> int:
     # -- 20. the one-program trajectories: graph against loop ---------------------
     graphs_phase(torch, gk, gens, reference, kw, fragment, smi, workdir)
 
+    # -- 21. the one-program train steps: graph against loop ----------------------
+    graphed_step = train_graphs_phase(torch, gk, corpus, smi, workdir)
+    graphed_launches = graphed_step["launches"]["graph"][-1]
+
     # One entry per kernel and mode: the forward kernels at the request's
     # shape, launches those of the request in the kernel's type; the
     # backward kernel at the training shape, launches those of one train
@@ -4194,6 +4660,8 @@ def main() -> int:
                 "dtype": name, "shape": [r["B"], r["N"], r["H"]],
                 "training_step_launches": (train_launches[mode]
                                            if name == "float32" else 0),
+                "graphed_step_launches": (graphed_launches[mode]
+                                          if name == "float32" else 0),
                 "aot_request_launches": (aot_launches[mode]
                                          if name == "bfloat16" else 0),
                 "overfit_launches": (
@@ -4217,6 +4685,7 @@ def main() -> int:
             "call_device_ms": next(x["device_ms_a_call"] for x in split
                                    if x["backward_split"]["mode"] == mode),
             "training_step_launches": train_launches[f"{mode}_bwd"],
+            "graphed_step_launches": graphed_launches[f"{mode}_bwd"],
             "overfit_launches": overfit_launches["train_step"][
                 f"{mode}_bwd"]})
     # The slab kernels at the sharded train step's shape (64, 40, 20),

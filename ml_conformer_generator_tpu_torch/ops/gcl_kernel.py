@@ -62,7 +62,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 import weakref
 from typing import Dict, List, Optional, Tuple
@@ -83,17 +82,23 @@ _DTYPES = (torch.float32, torch.bfloat16)
 #: Kernel launches per mode since import (or since the caller reset them):
 #: the forward kernels under the mode's name, the backward kernel under the
 #: mode's name and "_bwd". A launch recorded into a CUDA graph under capture
-#: is not a launch: it goes to the capturing thread's tally
+#: is not a launch: it goes to the capturing stream's tally
 #: (:func:`captured_launches`), and each replay of the graph credits what its
 #: capture recorded (:func:`credit_launches`, ``utils/cuda_graph.py``).
 LAUNCHES: Dict[str, int] = {"gcl": 0, "coord": 0, "gcl_bwd": 0,
                             "coord_bwd": 0}
-#: Per thread: launches recorded into graphs captured on that thread.
-_CAPTURED = threading.local()
+#: By capturing stream (its handle): launches, and W1 packs under "packs",
+#: recorded into graphs captured on it, and the tensors their launches read.
+#: By stream, not by thread: a captured backward (a train step's) runs on
+#: the autograd engine's device thread, on the capturing stream.
+_CAPTURED: Dict[int, Dict[str, int]] = {}
+_CAPTURED_READS: Dict[int, List[torch.Tensor]] = {}
 
 #: Times W1 was packed since import (or since the caller reset it). A
 #: weight is packed once and then served from the cache; a forward that
 #: autograd records packs the backward's layouts with it, in the same pack.
+#: A pack recorded into a graph is counted as its launches are: by each
+#: replay.
 PACKS = 0
 
 #: Packed W1 layout, as the kernels consume it: output rows padded to _NP and
@@ -134,13 +139,22 @@ def reset_pack_count() -> None:
     PACKS = 0
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def _current_stream() -> int:
+    return (torch.cuda.current_stream().cuda_stream
+            if torch.cuda.is_available() else 0)
+
+
 def _count_launch(key: str, reads: Tuple[torch.Tensor, ...] = ()) -> None:
     """One launch of the kernel counted under ``key``: into LAUNCHES, or,
-    while this thread's current stream is capturing a CUDA graph, into the
-    thread's tally of captured launches, and ``reads`` (what the kernel
-    reads that its caller does not hold: the packed W1) into the thread's
-    list of tensors the graph must keep alive."""
-    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+    while the current stream is capturing a CUDA graph, into that stream's
+    tally of captured launches, and ``reads`` (what the kernel reads that
+    its caller does not hold: the packed W1) into the stream's list of
+    tensors the graph must keep alive."""
+    if _capturing():
         tally = captured_launches()
         tally[key] = tally.get(key, 0) + 1
         captured_reads().extend(reads)
@@ -148,28 +162,31 @@ def _count_launch(key: str, reads: Tuple[torch.Tensor, ...] = ()) -> None:
         LAUNCHES[key] += 1
 
 
-def captured_launches() -> Dict[str, int]:
-    """This thread's tally of launches recorded into CUDA graphs, by
-    LAUNCHES key, since the thread started (the live dict)."""
-    if not hasattr(_CAPTURED, "tally"):
-        _CAPTURED.tally = {}
-    return _CAPTURED.tally
+def captured_launches(stream: Optional[int] = None) -> Dict[str, int]:
+    """The tally of launches (and W1 packs, under "packs") recorded into
+    CUDA graphs on ``stream`` (a handle; default the current stream), by
+    LAUNCHES key (the live dict)."""
+    return _CAPTURED.setdefault(
+        _current_stream() if stream is None else stream, {})
 
 
-def captured_reads() -> List[torch.Tensor]:
-    """This thread's tensors read by launches recorded into CUDA graphs and
-    not yet taken by their graph (the live list): a replay reads them by
-    address, so the graph holds them."""
-    if not hasattr(_CAPTURED, "reads"):
-        _CAPTURED.reads = []
-    return _CAPTURED.reads
+def captured_reads(stream: Optional[int] = None) -> List[torch.Tensor]:
+    """The tensors read by launches recorded into CUDA graphs on ``stream``
+    (default the current stream) and not yet taken by their graph (the
+    live list): a replay reads them by address, so the graph holds them."""
+    return _CAPTURED_READS.setdefault(
+        _current_stream() if stream is None else stream, [])
 
 
 def credit_launches(counts: Dict[str, int]) -> None:
-    """Add ``counts`` (a graph's recorded launches) to LAUNCHES: one replay
-    of that graph."""
+    """Add ``counts`` (a graph's recorded launches, and packs under
+    "packs") to LAUNCHES and PACKS: one replay of that graph."""
+    global PACKS
     for key, n in counts.items():
-        LAUNCHES[key] += n
+        if key == "packs":
+            PACKS += n
+        else:
+            LAUNCHES[key] += n
 
 
 def _chunk_swizzle(device) -> torch.Tensor:
@@ -177,6 +194,13 @@ def _chunk_swizzle(device) -> torch.Tensor:
     permutation is its own inverse."""
     rows = torch.arange(_NH, device=device)[:, None] % 8
     return torch.arange(8, device=device)[None, :] ^ rows
+
+
+def _k_perm(device) -> torch.Tensor:
+    """``_K_PERM`` as an index on ``device``, computed there: no host copy,
+    so that a pack can be recorded into a CUDA graph."""
+    p = torch.arange(_KT32, device=device)
+    return 4 * (p % 4) + 2 * (p // 8) + (p // 4) % 2
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -209,7 +233,7 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
         wp[:H, :H] = w1
         hi = round_tf32(wp)
         lo = round_tf32(wp - hi)
-        perm = torch.tensor(_K_PERM, device=w1.device)
+        perm = _k_perm(w1.device)
         rows = torch.stack((hi.view(_NP, nkt, _KT32)[..., perm],
                             lo.view(_NP, nkt, _KT32)[..., perm]), 2)
         tiles = rows.view(2, _NH, nkt, 8, 4).permute(0, 2, 1, 3, 4)
@@ -234,6 +258,13 @@ def packed_w1(w1: torch.Tensor, backward: bool = False):
     holds on to the storage it packed, so that new storage cannot come to
     lie at the same address. The entry goes when the tensor does, so nothing
     accumulates per call.
+
+    Under a CUDA graph's capture the pack is recorded too: a train step's
+    graph, whose optimizer writes W1, packs the W1 of each replay (the
+    capture's warm-up step moved W1's version, so the capture misses).
+    Such a graph increments its weights' versions on each replay
+    (``utils/cuda_graph.py``), so an eager call after a replay packs
+    afresh.
     """
     global PACKS
     key = id(w1)
@@ -247,7 +278,11 @@ def packed_w1(w1: torch.Tensor, backward: bool = False):
     # backward pack was added read it by address
     packed = hit[3] if valid else pack_w1(source)
     packed_bwd = pack_w1(source.t()) if backward else None
-    PACKS += 1
+    if _capturing():
+        tally = captured_launches()
+        tally["packs"] = tally.get("packs", 0) + 1
+    else:
+        PACKS += 1
     ref = weakref.ref(w1, lambda _, key=key: _PACK_CACHE.pop(key, None))
     _PACK_CACHE[key] = (ref, source, w1._version, packed, packed_bwd)
     return (packed, packed_bwd) if backward else packed

@@ -10,7 +10,10 @@ one-hot bond-type targets are the molecules' TRUE bonds renumbered into that
 same canonical order, so position statistics match what the model will see
 at inference. ``bond_training_batch`` is a numpy copy; the training is
 ``torch.optim.Adam`` over the port's :class:`AdjMatSeer` (plain PyTorch and
-cuBLAS under autograd: the JAX package has no kernel here either).
+cuBLAS under autograd: the JAX package has no kernel here either). JAX jits
+its step; on the card the port's step (loss, backward, Adam) is one captured
+CUDA graph replayed once a step (``utils/cuda_graph.py``), with a sampled
+batch gathered on the host side of the step.
 """
 
 from __future__ import annotations
@@ -25,7 +28,9 @@ from ..chem.featurize import prepare_adj_mat_seer_input
 from ..chem.mol import Molecule
 from ..config import AdjMatSeerConfig
 from ..models.adj_mat_seer import AdjMatSeer, adj_mat_seer_forward
+from ..utils.cuda_graph import GraphCache, step_graph
 from ..utils.device import resolve_device
+from . import step as _step
 
 __all__ = ["bond_training_batch", "train_adj_mat_seer"]
 
@@ -97,8 +102,22 @@ def train_adj_mat_seer(mols: Sequence[Molecule], *, steps: int = 500,
     data["dist"] = data["dist"].to(dtype)
     data["adj"] = data["adj"].to(dtype)
 
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    # fused: one algorithm on the CPU and the card; capturable on the card
+    params = list(model.parameters())
+    optimizer = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                 fused=True,
+                                 capturable=device.type == "cuda")
+
+    def body(**d):
+        """One step on the batch ``d``, tensors only."""
+        optimizer.zero_grad(set_to_none=True)
+        loss = _bond_loss(model, d)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    graphs = GraphCache(1)
+    graphed = device.type == "cuda" and _step._graphed
     rng = np.random.default_rng(seed)
     history: List[Dict] = []
     n = data["elements"].shape[0]
@@ -109,12 +128,12 @@ def train_adj_mat_seer(mols: Sequence[Molecule], *, steps: int = 500,
             d = {k: v[idx] for k, v in data.items()}
         else:
             d = data
-        optimizer.zero_grad(set_to_none=True)
-        loss = _bond_loss(model, d)
-        loss.backward()
-        optimizer.step()
+        if graphed:
+            _, loss, _ = step_graph(graphs, "step", None, body, d, params)
+        else:
+            loss = body(**d)
         if step % log_every == 0 or step == steps:
-            loss = float(loss.detach())
+            loss = float(loss)
             history.append({"step": step, "loss": loss})
             log_fn(f"[train-bonds] step {step} loss {loss:.5f}")
     return {"params": model, "history": history}

@@ -5,11 +5,16 @@ checkpoints: data pipeline (:mod:`.data`) -> mesh-sharded train step
 (:mod:`.step`) -> ``.npz`` checkpoints in the JAX package's layout
 (``checkpoint.save_params`` of ``to_jax_params``), which both packages'
 generators load.
+
+On the card the step (``step.py``) and the EMA update each run as a
+captured CUDA graph replayed once a step, as JAX jits each of them; the
+host makes the batch, the draws and the EMA's decay between them.
 """
 
 from __future__ import annotations
 
 import copy
+import functools
 import time
 from typing import Callable, Dict, Optional
 
@@ -22,6 +27,8 @@ from ..config import DiffusionConfig, EGNNConfig
 from ..diffusion.schedule import gamma_schedule
 from ..models.egnn import EGNNDynamics
 from ..parallel.mesh import make_mesh
+from ..utils.cuda_graph import GraphCache, step_graph
+from . import step as _step
 from .data import MoleculeDataset, batches, prefetch
 from .step import init_train_state, make_optimizer, make_train_step
 
@@ -39,12 +46,41 @@ def ema_decay_at(decay: float, t: int) -> float:
                             (np.float32(1.0) + t32) / (np.float32(10.0) + t32)))
 
 
+#: Captured EMA updates, by the addresses, shapes and types of both
+#: modules' parameters (a graph reads them by address); a run has one.
+_EMA_GRAPHS = GraphCache(2)
+
+
+def ema_graph_body(ema_params, params, decay: torch.Tensor):
+    """The EMA update a graph captures: ``ema <- d ema + (1 - d) model`` in
+    place, the pair (d, 1 - d) read from the device tensor ``decay``, each
+    product and the sum rounded as :func:`ema_update_`'s loop rounds them.
+    Returns nothing to copy out."""
+    torch._foreach_mul_(ema_params, decay[0])
+    torch._foreach_add_(ema_params, torch._foreach_mul(params, decay[1]))
+    return ()
+
+
 @torch.no_grad()
 def ema_update_(ema: torch.nn.Module, model: torch.nn.Module, decay: float,
                 t: int) -> None:
-    """``ema <- d ema + (1 - d) model`` in place, d = :func:`ema_decay_at`."""
+    """``ema <- d ema + (1 - d) model`` in place, d = :func:`ema_decay_at`.
+
+    On the card one captured graph (:func:`ema_graph_body`) reads the pair
+    (d, 1 - d) as a tensor of the weights' type: exactly the float32 values
+    that the loop's Python floats become in its float32 products."""
     d = ema_decay_at(decay, t)
-    for e, p in zip(ema.parameters(), model.parameters()):
+    ema_params, params = list(ema.parameters()), list(model.parameters())
+    if ema_params[0].device.type == "cuda" and _step._graphed:
+        pair = torch.tensor([d, 1.0 - d], dtype=ema_params[0].dtype,
+                            device=ema_params[0].device)
+        key = tuple((p.data_ptr(), tuple(p.shape), p.dtype)
+                    for p in ema_params + params)
+        step_graph(_EMA_GRAPHS, key, None,
+                   functools.partial(ema_graph_body, ema_params, params),
+                   {"decay": pair}, ema_params)
+        return
+    for e, p in zip(ema_params, params):
         e.copy_(d * e + (1.0 - d) * p)
 
 

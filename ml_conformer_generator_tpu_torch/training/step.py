@@ -7,6 +7,15 @@ computes the local loss through the edge-sharded EGNN
 both mesh axes before every rank applies the same AdamW update. On the card
 every edge pass of the step, forward and backward, runs in the port's
 float32 kernels (``ops/gcl_kernel.py``), on the rank's slab.
+
+JAX runs a step as one compiled program (``jax.jit`` of the loss, its
+``value_and_grad``, the ``pmean`` and the optax update). The port splits a
+step into host work (the batch and the draws, in the loop's order) and a
+device body of tensors only (the loss from the draws, its backward with
+remat, the gradients' reduction and the AdamW update). On the card, on the
+(1, 1) mesh, the body is one captured CUDA graph (``utils/cuda_graph.py``),
+replayed once a step; its first call is the capture's warm-up step. On CPU
+tensors, and on a mesh of more than one rank, the body runs eagerly.
 """
 
 from __future__ import annotations
@@ -24,7 +33,18 @@ from ..models.egnn import EGNNDynamics
 from ..parallel.edge_shard import dynamics_forward_sharded
 from ..parallel.mesh import Mesh, data_sharding
 from ..parallel.sampler import data_stream
-from .loss import edm_training_loss
+from ..utils.cuda_graph import GraphCache, step_graph
+from . import loss as _loss
+
+#: Whether a step on CUDA tensors on the (1, 1) mesh runs as its captured
+#: graph; the EMA update (``loop.py``) and AdjMatSeer's step (``bonds.py``)
+#: read it too. Not a switch for callers: the loop on the card exists for
+#: comparison only (``chip_smoke.py``'s ``train_loop``).
+_graphed = True
+#: Captured steps kept per step function. A run's batches have one shape
+#: (``data.batches``), so one graph a model; on the H100 a full-width step
+#: at (64, 39) holds its working set in its graph (PERF.md).
+GRAPHS_KEPT = 2
 
 
 @dataclasses.dataclass
@@ -66,6 +86,13 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-12, *,
     ``LambdaLR`` equal to optax's: the first update uses ``schedule(0)``,
     which is 0 with a warmup. The recipe's ``schedule`` attribute is the
     learning rate by step.
+
+    The AdamW is torch's fused one, on the CPU and on the card (one
+    algorithm, which the CPU tests hold; on the card ``capturable``), with
+    the learning rate a tensor on the parameters' device that the schedule
+    fills in place: a captured step reads it there. It is float32 on the
+    card, which the fused kernel reads, and float64 on the CPU, where the
+    fused update reads it as the Python float it would otherwise be.
     """
     if total_steps > 0:
         # optax requires decay_steps - warmup_steps > 0; clamp so short
@@ -82,8 +109,19 @@ def make_optimizer(lr: float = 1e-4, weight_decay: float = 1e-12, *,
             return lr
 
     def build(params: Iterable[torch.nn.Parameter]) -> TrainState:
-        opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=weight_decay)
+        params = list(params)
+        device = params[0].device
+        lr_t = torch.tensor(lr, device=device, dtype=(
+            torch.float32 if device.type == "cuda" else torch.float64))
+        opt = torch.optim.AdamW(params, lr=lr_t, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=weight_decay,
+                                fused=True, capturable=device.type == "cuda")
+        # The fused update writes the parameters without moving their
+        # version counters, which the packed-W1 cache (ops/gcl_kernel.py)
+        # and a sampler's weights token read: move them after each step, as
+        # the single-tensor update's in-place ops do.
+        opt.register_step_post_hook(
+            lambda *_: torch.autograd.graph.increment_version(params))
         sched = torch.optim.lr_scheduler.LambdaLR(
             opt, lambda count: schedule(count) / lr if lr else 0.0)
         return TrainState(opt, sched)
@@ -170,6 +208,13 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
     ``.grad``. metrics are {"loss", "mean_t"}, their mean over the data
     axis, as device tensors.
 
+    On the card, on the (1, 1) mesh, the device body of the step is a
+    captured CUDA graph, one per model, optimizer and batch shape: the first
+    step of each is eager (the capture's warm-up) and records it, the later
+    ones copy the batch and the draws into it and replay it. A capture that
+    fails raises. The draws are made on the host side of the step, before
+    the replay, as the loop makes them.
+
     Per-block rematerialisation is forced on (``EGNNConfig.remat``), as in
     the JAX step. Like JAX's step, it reads no ``compute_dtype``: the
     sharded forward computes in the weights' type, so a "bfloat16" config
@@ -180,21 +225,89 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
     device = mesh.device
     rows, slab = data_sharding(mesh), data_sharding(mesh, None, "edge")
     dynamics_fn = functools.partial(dynamics_forward_sharded, mesh=mesh)
+    graphs = GraphCache(GRAPHS_KEPT)
 
-    def step(model: EGNNDynamics, state: TrainState,
-             generator: torch.Generator, batch, gamma):
-        b = {k: rows(batch[k]) for k in ("x", "h", "node_mask", "context")}
-        b["edge_mask"] = slab(batch["edge_mask"])
-        gamma = torch.as_tensor(gamma, device=device)
-        draws = data_stream(generator, mesh.data_index, device)
+    def body(model, state, *, x, h, node_mask, edge_mask, context, gamma,
+             t_int, eps):
+        """The step's device work, a function of tensors only: the loss
+        from the draws, its backward, the reduction and the update."""
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = edm_training_loss(
-            model, draws, b["x"], b["h"], b["node_mask"], b["edge_mask"],
-            b["context"], gamma, egnn_cfg, diff_cfg, dynamics_fn=dynamics_fn)
+        loss, metrics = _loss._loss_from_draws(
+            model, t_int, eps, x, h, node_mask, edge_mask, context, gamma,
+            egnn_cfg, diff_cfg, dynamics_fn=dynamics_fn)
         loss.backward()
         _reduce_gradients(model, mesh)
         state.optimizer.step()
+        return metrics["loss"], metrics["mean_t"]
+
+    def step(model: EGNNDynamics, state: TrainState,
+             generator: torch.Generator, batch, gamma):
+        inputs = {k: rows(batch[k]) for k in ("x", "h", "node_mask",
+                                              "context")}
+        inputs["edge_mask"] = slab(batch["edge_mask"])
+        inputs["gamma"] = torch.as_tensor(gamma, device=device)
+        x = inputs["x"]
+        inputs["t_int"], inputs["eps"] = _loss._draws(
+            data_stream(generator, mesh.data_index, device), x.shape[0],
+            x.shape[1], inputs["node_mask"], diff_cfg, x.dtype)
+        groups = state.optimizer.param_groups
+        lrs = [g["lr"] for g in groups]
+        graphed = _graphed_on(mesh) and _graphed
+        if graphed:
+            loss, mean_t = _graph_step(graphs, functools.partial(
+                body, model, state), model, state, inputs)
+        else:
+            loss, mean_t = body(model, state, **inputs)
         state.scheduler.step()
-        return _data_mean(metrics, mesh)
+        if graphed and any(g["lr"] is not lr for g, lr in zip(groups, lrs)):
+            raise RuntimeError("the learning-rate schedule replaced the lr "
+                               "tensor that the captured step reads")
+        return _data_mean({"loss": loss, "mean_t": mean_t}, mesh)
 
     return step
+
+
+def _graphed_on(mesh: Mesh) -> bool:
+    """Whether steps on ``mesh`` run as a captured graph: on the card, on
+    one rank. More than one rank keeps the loop: its gradients and edge
+    aggregates all-reduce through gloo, which stages CUDA tensors through
+    the host and cannot be captured into a CUDA graph (NCCL across several
+    cards could be; not done)."""
+    return mesh.device.type == "cuda" and mesh.n_data * mesh.n_edge == 1
+
+
+def _graph_step(graphs: GraphCache, body: Callable, model: EGNNDynamics,
+                state: TrainState, inputs: Dict[str, torch.Tensor]):
+    """``body(**inputs)`` through the step's graph of ``model`` and
+    ``state``, captured again when a parameter or buffer moves to other
+    storage or the optimizer's state or groups are replaced (a graph reads
+    them by address). The graph's backward writes the gradients into its
+    own memory: after each call ``.grad`` is that memory, and after a
+    capture it holds the warm-up step's gradients."""
+    params = list(model.parameters())
+    opt = state.optimizer
+    key = (id(model), id(opt),
+           tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
+    token = (tuple(t.data_ptr() for t in (*params, *model.buffers())),
+             id(opt.state), tuple(id(g) for g in opt.param_groups))
+    warm_grads = []
+
+    def warmup(**static):
+        out = body(**static)
+        warm_grads.extend(p.grad for p in params)
+        return out
+
+    graph, out, captured = step_graph(graphs, key, token, body, inputs,
+                                      params, warmup)
+    if captured:
+        # the capture's backward left .grad in the graph's memory, not yet
+        # written: the warm-up was this call's step, its gradients go there
+        stream = torch.cuda.current_stream(graph.device)
+        graph.grads = [p.grad for p in params]
+        for g, w in zip(graph.grads, warm_grads):
+            if g is not None:
+                w.record_stream(stream)
+                g.copy_(w)
+    for p, g in zip(params, graph.grads):
+        p.grad = g
+    return out

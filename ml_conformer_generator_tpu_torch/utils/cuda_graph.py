@@ -27,10 +27,23 @@ the outputs of. The idiom, and why:
 * a call replays on the caller's current stream, after the graph's last
   call has finished with the static buffers (an event), under a lock;
 * launches of the edge kernels recorded by the capture
-  (``ops/gcl_kernel.py``'s tally) are credited to ``LAUNCHES`` on every
-  replay, so a replayed request counts the launches it makes; the packed
-  W1 those launches read is held by the graph, so that a repack (the
-  backward's, or a weight's new version) cannot free what a replay reads.
+  (``ops/gcl_kernel.py``'s tally of the capturing stream, which the
+  autograd engine's device thread also records a captured backward into)
+  are credited to ``LAUNCHES`` on every replay, so a replayed request
+  counts the launches it makes, and W1 packs so recorded to ``PACKS``; the
+  packed W1 those launches read is held by the graph, so that a repack
+  (the backward's, or a weight's new version) cannot free what a replay
+  reads;
+* a graph that updates tensors in place (``writes``: a train step's
+  parameters, an EMA's) increments their version counters on every
+  replay, as the eager in-place ops would: whatever is keyed by a
+  tensor's version (the packed W1, a sampler's weights token) sees the
+  change, though a replay runs no Python.
+
+The JAX package's train steps are jitted functions of their state; the
+port's step updates its state in place. Its graph is captured by
+:func:`step_graph`, whose warm-up is the step itself: a first call makes
+one step, eagerly, and records the graph; later calls replay it.
 
 What a graph holds: its static inputs and outputs, and a private memory
 pool with every intermediate tensor the capture allocated (the allocator
@@ -47,13 +60,13 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Optional, Tuple
+from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import gcl_kernel
 
-__all__ = ["CapturedGraph", "GraphCache", "capture"]
+__all__ = ["CapturedGraph", "GraphCache", "capture", "step_graph"]
 
 #: Per thread: the side stream that thread warms up and captures on, by
 #: device.
@@ -90,13 +103,15 @@ class CapturedGraph:
     def __init__(self, graph: torch.cuda.CUDAGraph,
                  inputs: Dict[str, torch.Tensor], outputs,
                  launches: Dict[str, int], device: torch.device,
-                 reads: Tuple[torch.Tensor, ...] = ()):
+                 reads: Tuple[torch.Tensor, ...] = (),
+                 writes: Tuple[torch.Tensor, ...] = ()):
         self.graph = graph
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
         self.device = device
         self.reads = reads
+        self.writes = writes
         self._lock = threading.Lock()
         self._done = torch.cuda.Event()
 
@@ -104,7 +119,7 @@ class CapturedGraph:
         """Copy ``inputs`` into the static inputs of the same names (each
         static input must be given, on the graph's device), replay
         ``replays`` times, and return copies of the outputs, all on the
-        caller's current stream."""
+        caller's current stream; the versions of ``writes`` move on."""
         if set(inputs) != set(self.inputs):
             raise ValueError(f"the graph takes {sorted(self.inputs)}, got "
                              f"{sorted(inputs)}")
@@ -122,16 +137,20 @@ class CapturedGraph:
             self._done.record(stream)
             for _ in range(replays):
                 gcl_kernel.credit_launches(self.launches)
+            if self.writes:
+                torch.autograd.graph.increment_version(self.writes)
         return out
 
 
 def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
-            warmup: Optional[Callable] = None) -> CapturedGraph:
+            warmup: Optional[Callable] = None,
+            writes: Sequence[torch.Tensor] = ()) -> CapturedGraph:
     """Record ``fn(**inputs)`` into a CUDA graph over static copies of
     ``inputs`` (CUDA tensors, all on one device), after one eager call of
     ``warmup`` (default ``fn``) on the same copies. ``fn`` must return a
     tensor or a tuple of tensors, make no host synchronisation and read no
-    CPU tensor. Raises if the capture fails."""
+    CPU tensor; ``writes``: the tensors other than its inputs that it
+    updates in place. Raises if the capture fails."""
     device = _cuda_device(inputs.values())
     static = {name: t.clone() for name, t in inputs.items()}
     caller = torch.cuda.current_stream(device)
@@ -140,9 +159,9 @@ def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
     with torch.cuda.stream(side):
         (warmup or fn)(**static)
         graph = torch.cuda.CUDAGraph()
-        tally = gcl_kernel.captured_launches()
+        tally = gcl_kernel.captured_launches(side.cuda_stream)
         before = dict(tally)
-        kept = gcl_kernel.captured_reads()
+        kept = gcl_kernel.captured_reads(side.cuda_stream)
         n_kept = len(kept)
         graph.capture_begin(capture_error_mode="thread_local")
         try:
@@ -160,7 +179,33 @@ def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
                 if n != before.get(k, 0)}
     reads = tuple(kept[n_kept:])
     del kept[n_kept:]
-    return CapturedGraph(graph, static, outputs, launches, device, reads)
+    return CapturedGraph(graph, static, outputs, launches, device, reads,
+                         tuple(writes))
+
+
+def step_graph(cache: "GraphCache", key: Hashable, token: Hashable,
+               fn: Callable, inputs: Dict[str, torch.Tensor],
+               writes: Sequence[torch.Tensor] = (),
+               warmup: Optional[Callable] = None):
+    """One call of ``fn(**inputs)``, a step that updates ``writes`` in
+    place (an optimizer's, an EMA's), through ``cache``'s graph under
+    ``key``. Where ``cache`` has no graph under ``key`` and ``token``, the
+    capture's warm-up, ``warmup`` (default ``fn``) on the static copies of
+    ``inputs``, is this call's step, made eagerly, and the graph is
+    recorded after it; otherwise the graph is replayed. Returns (the graph,
+    the step's outputs, whether this call captured)."""
+    first = []
+
+    def warm(**static):
+        first.append((warmup or fn)(**static))
+
+    graph = cache.get(key, token, lambda: capture(fn, inputs, warm, writes))
+    if not first:
+        return graph, graph(**inputs), False
+    # the warm-up's outputs were made on the capture's side stream
+    stream = torch.cuda.current_stream(graph.device)
+    _map(lambda t: t.record_stream(stream), first[0])
+    return graph, first[0], True
 
 
 class GraphCache:

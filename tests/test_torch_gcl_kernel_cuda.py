@@ -605,3 +605,149 @@ def test_a_graph_refuses_tensors_off_its_device(card):
                        torch.full((3,), 4.0, device="cuda"))
     with pytest.raises(ValueError):
         graph(x=torch.ones(3))
+
+
+def _train_batches(n, B=4, N=20, seed=0):
+    """``n`` float32 training batches of B graphs of up to N nodes."""
+    from ml_conformer_generator_tpu_torch.utils.masks import prepare_masks
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        nm, em = prepare_masks(torch.tensor(rng.integers(12, N + 1, B)), N)
+        x = torch.tensor(rng.standard_normal((B, N, 3)),
+                         dtype=torch.float32) * nm
+        x = (x - x.sum(1, keepdim=True) / nm.sum(1, keepdim=True)) * nm
+        out.append({
+            "x": x, "node_mask": nm, "edge_mask": em,
+            "h": torch.eye(8)[torch.tensor(rng.integers(0, 8, (B, N)))] * nm,
+            "context": torch.tensor(rng.standard_normal((B, N, 3)),
+                                    dtype=torch.float32) * nm})
+    return out
+
+
+def _held_forward(monkeypatch, calls):
+    """Each forward kernel launch held against the plain version on the same
+    inputs at the float32 bar, counted into ``calls``."""
+    launch = gk._launch_forward
+
+    def held(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *, mode, norm, **kw):
+        out = launch(u, v, ef, em, w_e, b0, w1, b1, wh, bh, mode=mode,
+                     norm=norm, **kw)
+        ref = gk.fused_edge_pass_reference(u, v, ef, em, w_e, b0, w1, b1,
+                                           wh, bh, mode=mode, norm=norm)
+        assert ((out - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all(), mode
+        calls.append(mode)
+        return out
+
+    monkeypatch.setattr(gk, "_launch_forward", held)
+
+
+def test_train_step_graph_is_the_loop(card, monkeypatch):
+    """The (1, 1) mesh's train step and the EMA update on the card run as
+    captured graphs; over five steps with a warmup-cosine that crosses its
+    warmup they equal the loop (the comparison's route, ``step._graphed``
+    off) bit for bit: losses, parameters, gradients, AdamW moments and
+    counts, the EMA; the learning-rate tensor is the one the graph reads.
+    Every step launches 4 / 2 forward and 2 / 1 backward kernels a block
+    and packs each W1 once, a replay's credited from its capture. An eager
+    forward after the replays packs every W1 afresh (the replays moved
+    their versions) and agrees with the plain version."""
+    import copy
+
+    from ml_conformer_generator_tpu_torch.config import (DiffusionConfig,
+                                                         EGNNConfig)
+    from ml_conformer_generator_tpu_torch.models.egnn import (
+        EGNNDynamics, dynamics_forward)
+    from ml_conformer_generator_tpu_torch.parallel import make_mesh
+    from ml_conformer_generator_tpu_torch.training import (init_train_state,
+                                                           make_optimizer,
+                                                           make_train_step)
+    from ml_conformer_generator_tpu_torch.training import step as tstep
+    from ml_conformer_generator_tpu_torch.training.loop import ema_update_
+
+    blocks = 2
+    cfg = EGNNConfig(hidden_nf=64, n_blocks=blocks)
+    recipe = make_optimizer(lr=1e-3, total_steps=8, warmup_steps=2)
+    gamma = torch.linspace(-8.0, 8.0, 11)
+    routes = ("graph", "loop")
+    models = {r: EGNNDynamics(cfg, torch.Generator().manual_seed(0)).cuda()
+              for r in routes}
+    emas = {r: copy.deepcopy(m).requires_grad_(False)
+            for r, m in models.items()}
+    states = {r: init_train_state(m, recipe) for r, m in models.items()}
+    step = make_train_step(make_mesh(device="cuda"), cfg,
+                           DiffusionConfig(timesteps=10))
+    gens = {r: torch.Generator(device="cuda").manual_seed(3) for r in routes}
+    lr = states["graph"].optimizer.param_groups[0]["lr"]
+    want = {"gcl": 4 * blocks, "coord": 2 * blocks, "gcl_bwd": 2 * blocks,
+            "coord_bwd": blocks}
+    for t, batch in enumerate(_train_batches(5)):
+        got = {}
+        for r in routes:
+            monkeypatch.setattr(tstep, "_graphed", r == "graph")
+            gk.reset_launch_counts()
+            gk.reset_pack_count()
+            m = step(models[r], states[r], gens[r], batch, gamma)
+            ema_update_(emas[r], models[r], 0.999, t)
+            torch.cuda.synchronize()
+            got[r] = m
+            assert gk.LAUNCHES == want and gk.PACKS == 3 * blocks, (r, t)
+        monkeypatch.setattr(tstep, "_graphed", True)
+        for k in ("loss", "mean_t"):
+            assert torch.equal(got["graph"][k], got["loop"][k]), (k, t)
+        pairs = zip(models["graph"].parameters(), models["loop"].parameters(),
+                    emas["graph"].parameters(), emas["loop"].parameters())
+        for p, q, e, f in pairs:
+            assert torch.equal(p, q) and torch.equal(p.grad, q.grad), t
+            assert torch.equal(e, f), t
+            a = states["graph"].optimizer.state[p]
+            b = states["loop"].optimizer.state[q]
+            assert all(torch.equal(a[k], b[k])
+                       for k in ("exp_avg", "exp_avg_sq", "step")), t
+        assert states["graph"].optimizer.param_groups[0]["lr"] is lr
+        assert torch.equal(lr, states["loop"].optimizer.param_groups[0]["lr"])
+        if t == 1:
+            # an eager forward between replays: its packs must not be served
+            # after the next replay
+            with torch.no_grad():
+                dynamics_forward(models["graph"], gamma[:4].cuda() * 0,
+                                 torch.cat([batch["x"], batch["h"]], -1).cuda(),
+                                 batch["node_mask"].cuda(),
+                                 batch["edge_mask"].cuda(),
+                                 batch["context"].cuda(), cfg)
+    calls = []
+    _held_forward(monkeypatch, calls)
+    gk.reset_pack_count()
+    with torch.no_grad():
+        dynamics_forward(models["graph"], torch.full((4,), 0.5, device="cuda"),
+                         torch.cat([batch["x"], batch["h"]], -1).cuda(),
+                         batch["node_mask"].cuda(), batch["edge_mask"].cuda(),
+                         batch["context"].cuda(), cfg)
+    torch.cuda.synchronize()
+    assert len(calls) == 3 * blocks and gk.PACKS == 3 * blocks
+
+
+@pytest.mark.parametrize("batch_size", [0, 3], ids=["full", "sampled"])
+def test_adj_mat_seer_graph_is_the_loop(card, monkeypatch, batch_size):
+    """``train_adj_mat_seer`` on the card: its step as a captured graph
+    against the loop, full batch and sampled subsets from one rng, every
+    loss and weight bit for bit."""
+    from ml_conformer_generator_tpu_torch.chem.smiles import from_smiles
+    from ml_conformer_generator_tpu_torch.config import AdjMatSeerConfig
+    from ml_conformer_generator_tpu_torch.training import (
+        step as tstep, train_adj_mat_seer)
+
+    mols = [from_smiles(s).remove_hs() for s in
+            ("CC(=O)Nc1ccc(O)cc1", "c1ccncc1", "CCOC(=O)C", "OCC(N)C(=O)O")]
+    cfg = AdjMatSeerConfig(n_hidden=64)
+    out = {}
+    for graphed in (True, False):
+        monkeypatch.setattr(tstep, "_graphed", graphed)
+        out[graphed] = train_adj_mat_seer(
+            mols, steps=6, lr=3e-3, batch_size=batch_size, seed=1, cfg=cfg,
+            log_every=1, log_fn=lambda s: None, device="cuda")
+    assert out[True]["history"] == out[False]["history"]
+    for p, q in zip(out[True]["params"].parameters(),
+                    out[False]["params"].parameters()):
+        assert torch.equal(p, q)
