@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from ..config import DiffusionConfig
 from ..models.egnn import remove_mean_with_mask
 from ..utils.cuda_graph import GraphCache, capture
+from ..utils.metrics import span, spanned
 
 # ---------------------------------------------------------------------------
 # Noise sampling
@@ -215,6 +216,7 @@ T_NORM, INV_ALPHA, COEF, SIGMA, ALPHA_S, SIGMA_S, BLEND, KEEP = range(8)
 SIGMA_X, SIGMA_0, INV_ALPHA_0 = range(3)
 
 
+@spanned("mlcg.sample.table")
 def scalar_table(gamma: torch.Tensor, dtype: torch.dtype,
                  blend_power: int = 3, diffusion_level: int = 0):
     """Every host scalar of a trajectory as (T + 1) rows of 8 Python floats
@@ -389,31 +391,43 @@ class EDMSampler:
              blend_power: int = 3, diffusion_level: int = 0,
              dtype: torch.dtype = torch.float32):
         """A trajectory on ``node_mask``'s device: the loop on the CPU (or
-        where ``_graphed`` is off), a captured graph on the card."""
-        if trajectory != "generate":
-            resample_steps = max(resample_steps, 1)
-            z_known = z_known.to(device=node_mask.device, dtype=dtype)
-            fixed_mask = fixed_mask.to(node_mask.device)
-        static = dict(trajectory=trajectory, resample_steps=resample_steps,
-                      diffusion_level=diffusion_level, t_dtype=gamma.dtype)
-        tensors = dict(node_mask=node_mask, edge_mask=edge_mask,
-                       context=context)
-        if trajectory != "generate":
-            tensors.update(z_known=z_known, fixed_mask=fixed_mask)
-        if node_mask.device.type != "cuda" or not self._graphed:
-            return self.trajectory(
-                table=scalar_table(gamma, dtype, blend_power,
-                                   diffusion_level),
-                noise=self._drawer(generator, node_mask, dtype), **static,
-                **tensors)
-        inputs = self.buffers(generator, gamma, blend_power=blend_power,
-                              dtype=dtype, **static, **tensors)
-        key = (tuple(sorted(static.items())), self.diff_cfg.timesteps,
-               tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()))
-        replay = functools.partial(self.from_buffers, static)
-        graph = self._graphs.get(key, self._weights_token(), lambda: capture(
-            replay, inputs, warmup=functools.partial(replay, steps=1)))
-        return graph(**inputs)
+        where ``_graphed`` is off), a captured graph on the card. Spans:
+        the host prelude (the table; on the card the draws and the graph's
+        lookup), then the trajectory (the loop, or the replay's enqueue)."""
+        with span("mlcg.sample.prelude"):
+            if trajectory != "generate":
+                resample_steps = max(resample_steps, 1)
+                z_known = z_known.to(device=node_mask.device, dtype=dtype)
+                fixed_mask = fixed_mask.to(node_mask.device)
+            static = dict(trajectory=trajectory,
+                          resample_steps=resample_steps,
+                          diffusion_level=diffusion_level, t_dtype=gamma.dtype)
+            tensors = dict(node_mask=node_mask, edge_mask=edge_mask,
+                           context=context)
+            if trajectory != "generate":
+                tensors.update(z_known=z_known, fixed_mask=fixed_mask)
+            if node_mask.device.type != "cuda" or not self._graphed:
+                run = functools.partial(
+                    self.trajectory,
+                    table=scalar_table(gamma, dtype, blend_power,
+                                       diffusion_level),
+                    noise=self._drawer(generator, node_mask, dtype),
+                    **static, **tensors)
+            else:
+                inputs = self.buffers(generator, gamma,
+                                      blend_power=blend_power, dtype=dtype,
+                                      **static, **tensors)
+                key = (tuple(sorted(static.items())), self.diff_cfg.timesteps,
+                       tuple((k, tuple(v.shape), v.dtype)
+                             for k, v in inputs.items()))
+                replay = functools.partial(self.from_buffers, static)
+                graph = self._graphs.get(
+                    key, self._weights_token(), lambda: capture(
+                        replay, inputs,
+                        warmup=functools.partial(replay, steps=1)))
+                run = functools.partial(graph, **inputs)
+        with span("mlcg.sample.trajectory"):
+            return run()
 
     def buffers(self, generator, gamma, *, trajectory, resample_steps,
                 diffusion_level, t_dtype, blend_power, dtype, **tensors):
@@ -427,11 +441,12 @@ class EDMSampler:
         draw = self._drawer(generator, node_mask, dtype)
         count = n_draws(trajectory, self.diff_cfg.timesteps, resample_steps,
                         diffusion_level)
-        return dict(
-            table=torch.tensor(scalar_table(gamma, dtype, blend_power,
-                                            diffusion_level),
-                               dtype=dtype, device=node_mask.device),
-            draws=torch.stack([draw() for _ in range(count)]), **tensors)
+        table = torch.tensor(scalar_table(gamma, dtype, blend_power,
+                                          diffusion_level),
+                             dtype=dtype, device=node_mask.device)
+        with span("mlcg.sample.draws"):
+            draws = torch.stack([draw() for _ in range(count)])
+        return dict(table=table, draws=draws, **tensors)
 
     def from_buffers(self, static, steps=None, *, table, draws, **tensors):
         """The trajectory a graph captures: :meth:`trajectory` with the

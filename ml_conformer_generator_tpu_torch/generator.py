@@ -42,7 +42,7 @@ from .utils.fragments import (ifm_prepare_fragments_for_merge,
                               ifm_prepare_gen_fragment_context,
                               prepare_fragment)
 from .utils.masks import pad_to_bucket, prepare_edm_input
-from .utils.metrics import StageTimer
+from .utils.metrics import StageTimer, span, spanned
 
 __all__ = ["MLConformerGenerator", "MLConformerGeneratorONNX",
            "resolve_device"]
@@ -157,16 +157,18 @@ class MLConformerGenerator:
         ``fixed_fragment``, inertial fragment matching
         (``inertial_fragment_matching``) or inpainting.
         """
-        min_n_nodes = max(min_n_nodes, self.min_n_nodes)
-        max_n_nodes = min(max_n_nodes, self.max_n_nodes)
-        n_pad = pad_to_bucket(max_n_nodes, self.node_bucket)
-        # a float32 context, as the JAX package holds it
-        reference_context = torch.as_tensor(
-            reference_context, dtype=torch.float32, device=self.device)
+        with span("mlcg.sample.prelude"):
+            min_n_nodes = max(min_n_nodes, self.min_n_nodes)
+            max_n_nodes = min(max_n_nodes, self.max_n_nodes)
+            n_pad = pad_to_bucket(max_n_nodes, self.node_bucket)
+            # a float32 context, as the JAX package holds it
+            reference_context = torch.as_tensor(
+                reference_context, dtype=torch.float32, device=self.device)
 
-        node_mask, edge_mask, batch_context, n_nodes = prepare_edm_input(
-            self._generator, n_samples, reference_context, self.context_norms,
-            min_n_nodes, max_n_nodes, n_nodes_pad=n_pad, device=self.device)
+            node_mask, edge_mask, batch_context, n_nodes = prepare_edm_input(
+                self._generator, n_samples, reference_context,
+                self.context_norms, min_n_nodes, max_n_nodes,
+                n_nodes_pad=n_pad, device=self.device)
 
         if fixed_fragment is None:
             x, h = self.sampler.generate(
@@ -178,16 +180,21 @@ class MLConformerGenerator:
                 n_nodes, fixed_fragment, n_pad, min_n_nodes,
                 resample_steps, blend_power, ifm_diffusion_level)
         else:
-            frag_x, frag_h = self._fragment_tensors(fixed_fragment)
-            z_known, fixed_mask = prepare_fragment(
-                n_samples, frag_x, frag_h, n_pad, min_n_nodes)
+            with span("mlcg.sample.prelude"):
+                frag_x, frag_h = self._fragment_tensors(fixed_fragment)
+                z_known, fixed_mask = prepare_fragment(
+                    n_samples, frag_x, frag_h, n_pad, min_n_nodes)
             x, h = self.sampler.inpaint(
                 self._generator, self.gamma, node_mask, edge_mask,
                 batch_context, z_known, fixed_mask,
                 resample_steps=resample_steps, blend_power=blend_power,
                 dtype=self.dtype)
-        return samples_to_molecules(x.cpu().numpy(), h.cpu().numpy(),
-                                    node_mask.cpu().numpy(), self.atom_decoder)
+        # the host waits here for the trajectory to end, then copies
+        with span("mlcg.sample.to_host"):
+            x, h = x.cpu().numpy(), h.cpu().numpy()
+            node_mask = node_mask.cpu().numpy()
+        with span("mlcg.sample.decode"):
+            return samples_to_molecules(x, h, node_mask, self.atom_decoder)
 
     def _fragment_tensors(self, fixed_fragment: Molecule):
         frag_x, frag_h = fragment_to_xh(fixed_fragment)
@@ -203,19 +210,20 @@ class MLConformerGenerator:
         Generate the complement fragments in their own principal frames, rotate
         them back, then merge with the fixed fragment by partial re-diffusion.
         """
-        frag_x, frag_h = self._fragment_tensors(fixed_fragment)
-        (frag_node_mask, frag_edge_mask, frag_context, shift,
-         rotation) = ifm_prepare_gen_fragment_context(
-            frag_x, reference_context, self.context_norms, n_nodes,
-            max_n_nodes, min_n_nodes)
+        with span("mlcg.sample.prelude"):
+            frag_x, frag_h = self._fragment_tensors(fixed_fragment)
+            (frag_node_mask, frag_edge_mask, frag_context, shift,
+             rotation) = ifm_prepare_gen_fragment_context(
+                frag_x, reference_context, self.context_norms, n_nodes,
+                max_n_nodes, min_n_nodes)
 
         x_gen, h_gen = self.sampler.generate(
             self._generator, self.gamma, frag_node_mask, frag_edge_mask,
             frag_context, resample_steps=resample_steps, dtype=self.dtype)
-        x_gen = inverse_coord_transform(x_gen, shift, rotation)
-
-        z_known, fixed_mask = ifm_prepare_fragments_for_merge(
-            frag_x, frag_h, x_gen, h_gen, max_n_nodes)
+        with span("mlcg.sample.prelude"):
+            x_gen = inverse_coord_transform(x_gen, shift, rotation)
+            z_known, fixed_mask = ifm_prepare_fragments_for_merge(
+                frag_x, frag_h, x_gen, h_gen, max_n_nodes)
         return self.sampler.merge_fragments(
             self._generator, self.gamma, node_mask, edge_mask, fixed_mask,
             batch_context, z_known, diffusion_level=ifm_diffusion_level,
@@ -226,6 +234,7 @@ class MLConformerGenerator:
     # Full pipeline (reference generate_conformers :268-368)
     # ------------------------------------------------------------------
 
+    @spanned("mlcg.request")
     def generate_conformers(
         self,
         reference_conformer: Optional[Molecule] = None,

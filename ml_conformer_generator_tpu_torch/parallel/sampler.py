@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from ..config import DiffusionConfig, EGNNConfig
 from ..diffusion.edm import EDMSampler
+from ..utils.metrics import span
 from .edge_shard import dynamics_forward_sharded
 from .mesh import Mesh, data_sharding
 
@@ -48,8 +49,9 @@ def data_stream(generator: torch.Generator, data_index: int,
     Distinct data rows (< 2^20) get distinct seeds."""
     if not 0 <= data_index < 1 << 20:
         raise ValueError(f"data index {data_index} out of range")
-    base = int(torch.randint(0, 1 << 62, (1,), generator=generator,
-                             device=generator.device).item())
+    with span("mlcg.train.seed_sync"):
+        base = int(torch.randint(0, 1 << 62, (1,), generator=generator,
+                                 device=generator.device).item())
     seed = _splitmix64(((base << 20) | data_index) & _MASK64) >> 1
     return torch.Generator(device=device).manual_seed(seed)
 

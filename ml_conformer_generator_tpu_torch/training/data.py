@@ -21,6 +21,7 @@ from ..config import (CONTEXT_NORMS, ELEMENTS_TO_CLASS, MAX_N_NODES,
                       MIN_N_NODES, NUM_ATOM_CLASSES)
 from ..chem.io import read_sdf
 from ..chem.mol import Molecule
+from ..utils.metrics import span
 
 __all__ = ["MoleculeDataset", "batches", "prefetch"]
 
@@ -119,7 +120,8 @@ def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("mlcg.data.wait"):
+            item = q.get()
         if item is _END:
             return
         yield item

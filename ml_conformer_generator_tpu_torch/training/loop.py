@@ -28,6 +28,7 @@ from ..diffusion.schedule import gamma_schedule
 from ..models.egnn import EGNNDynamics
 from ..parallel.mesh import make_mesh
 from ..utils.cuda_graph import GraphCache, step_graph
+from ..utils.metrics import spanned
 from . import step as _step
 from .data import MoleculeDataset, batches, prefetch
 from .step import init_train_state, make_optimizer, make_train_step
@@ -61,6 +62,7 @@ def ema_graph_body(ema_params, params, decay: torch.Tensor):
     return ()
 
 
+@spanned("mlcg.train.ema")
 @torch.no_grad()
 def ema_update_(ema: torch.nn.Module, model: torch.nn.Module, decay: float,
                 t: int) -> None:

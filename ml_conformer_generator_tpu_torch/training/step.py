@@ -34,6 +34,7 @@ from ..parallel.edge_shard import dynamics_forward_sharded
 from ..parallel.mesh import Mesh, data_sharding
 from ..parallel.sampler import data_stream
 from ..utils.cuda_graph import GraphCache, step_graph
+from ..utils.metrics import span, spanned
 from . import loss as _loss
 
 #: Whether a step on CUDA tensors on the (1, 1) mesh runs as its captured
@@ -240,25 +241,29 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
         state.optimizer.step()
         return metrics["loss"], metrics["mean_t"]
 
+    @spanned("mlcg.train.step")
     def step(model: EGNNDynamics, state: TrainState,
              generator: torch.Generator, batch, gamma):
-        inputs = {k: rows(batch[k]) for k in ("x", "h", "node_mask",
-                                              "context")}
-        inputs["edge_mask"] = slab(batch["edge_mask"])
-        inputs["gamma"] = torch.as_tensor(gamma, device=device)
+        with span("mlcg.train.batch"):
+            inputs = {k: rows(batch[k]) for k in ("x", "h", "node_mask",
+                                                  "context")}
+            inputs["edge_mask"] = slab(batch["edge_mask"])
+            inputs["gamma"] = torch.as_tensor(gamma, device=device)
         x = inputs["x"]
-        inputs["t_int"], inputs["eps"] = _loss._draws(
-            data_stream(generator, mesh.data_index, device), x.shape[0],
-            x.shape[1], inputs["node_mask"], diff_cfg, x.dtype)
+        with span("mlcg.train.draws"):
+            inputs["t_int"], inputs["eps"] = _loss._draws(
+                data_stream(generator, mesh.data_index, device), x.shape[0],
+                x.shape[1], inputs["node_mask"], diff_cfg, x.dtype)
         groups = state.optimizer.param_groups
         lrs = [g["lr"] for g in groups]
         graphed = _graphed_on(mesh) and _graphed
-        if graphed:
-            loss, mean_t = _graph_step(graphs, functools.partial(
-                body, model, state), model, state, inputs)
-        else:
-            loss, mean_t = body(model, state, **inputs)
-        state.scheduler.step()
+        with span("mlcg.train.body"):
+            if graphed:
+                loss, mean_t = _graph_step(graphs, functools.partial(
+                    body, model, state), model, state, inputs)
+            else:
+                loss, mean_t = body(model, state, **inputs)
+            state.scheduler.step()
         if graphed and any(g["lr"] is not lr for g, lr in zip(groups, lrs)):
             raise RuntimeError("the learning-rate schedule replaced the lr "
                                "tensor that the captured step reads")

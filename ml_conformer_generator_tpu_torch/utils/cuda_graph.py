@@ -65,6 +65,7 @@ from typing import Callable, Dict, Hashable, Optional, Sequence, Tuple
 import torch
 
 from ..ops import gcl_kernel
+from .metrics import span
 
 __all__ = ["CapturedGraph", "GraphCache", "capture", "step_graph"]
 
@@ -234,7 +235,8 @@ class GraphCache:
             if hit is not None and hit[0] == token:
                 self._graphs.move_to_end(key)
                 return hit[1]
-        graph = make()
+        with span("mlcg.graph.capture"):
+            graph = make()
         with self._lock:
             self.captures += 1
             self._graphs[key] = (token, graph)
