@@ -5,10 +5,13 @@ Run from the repository root on a machine with one CUDA card (Hopper,
 sm_90a):
 
     python3 chip_smoke.py             # the smoke run
-    python3 chip_smoke.py --profile   # plus the kernels' phase clocks and
-                                      # one request under torch.profiler
+    python3 chip_smoke.py --profile   # plus the kernels' phase clocks (the
+        # bf16 kernel's per warpgroup) and one request under torch.profiler
     python3 chip_smoke.py --compare-train DIR   # only the backward call and
         # the train step of the checkout in DIR and of this one, in turns
+    python3 chip_smoke.py --compare-bf16 DIR    # only the bf16 edge kernel
+        # of the checkout in DIR and of this one, in turns: times beside the
+        # bound and the phase clocks
 
 It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
 csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32,
@@ -38,7 +41,8 @@ is the capture's warm-up, made for real, and the later steps replay it
    not fill their last tile of target nodes (B=5, N=40), at the most nodes
    a tile holds (B=8, N=128), at the edges twin's (B=128, N=42) and at the
    shape this run's request gives it;
-   kernel, plain and library times (CUDA events) beside the bound; then the
+   kernel (eager, and replayed in a CUDA graph of 50 launches), plain and
+   library times (CUDA events) beside the bound; then the
    cache of packed W1 in both types: a second launch packs nothing, an
    in-place change of W1 packs again and changes the result;
 4. model: one full-width bf16 ``dynamics_forward`` through the kernel
@@ -339,6 +343,30 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters=50):
+    """Mean time of ``fn`` on the card, ``iters`` launches captured in one
+    CUDA graph and replayed (CUDA events): device time without the host's
+    gaps between eager launches, as the sampler's graphs run them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def edge_pass_bound(B, N, H, E, dtype_name, mode, backward=False, NL=None):
     """Least time (ms) of one edge pass on an H100, and what bounds it.
     ``NL``: source nodes of a j-slab (default N, the square edge set); the
@@ -463,13 +491,14 @@ def plain_edge_pass(gk):
         EDMSampler._graphed = True
 
 
-def kernel_phase(torch, gk, B, N, sizes, card, H=420):
-    """Each mode x type at (B, N, H): held against the plain version, then
-    timed beside the plain version, one torch.matmul of the inner GEMM and
-    the bound. ``card``: (SMs, SM clock in Hz) for the elementwise floor.
-    Returns one record per (mode, type)."""
+def kernel_phase(torch, gk, B, N, sizes, card, H=420,
+                 dtypes=("bfloat16", "float32")):
+    """Each mode x type (of ``dtypes``) at (B, N, H): held against the plain
+    version, then timed beside the plain version, one torch.matmul of the
+    inner GEMM and the bound. ``card``: (SMs, SM clock in Hz) for the
+    elementwise floor. Returns one record per (mode, type)."""
     out = []
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (getattr(torch, d) for d in dtypes):
         name = str(dtype).replace("torch.", "")
         a, nm = edge_inputs(torch, B, N, H, dtype, sizes, seed=B * N)
         for mode in ("gcl", "coord"):
@@ -500,6 +529,7 @@ def kernel_phase(torch, gk, B, N, sizes, card, H=420):
                   f"masked rows not zero: {rec}")
             x = torch.randn(B * N * N, H, device="cuda", dtype=dtype)
             rec["kernel_ms"] = cuda_ms(torch, call, iters=20)
+            rec["kernel_graph_ms"] = graph_ms(torch, call)
             rec["plain_ms"] = cuda_ms(torch, plain, iters=5)
             rec["library_ms"] = cuda_ms(torch, lambda: x @ args["w1"].t(),
                                         iters=20)
@@ -550,21 +580,82 @@ def pack_cache_phase(torch, gk, dtype, B=8, N=32, H=420):
 
 
 # The clock slots of each kernel (the C entries' notes give their bounds).
+# The bf16 kernel's are marks (clock readings), (block, warpgroup, tile,
+# mark); these are the intervals between its consecutive marks. The float32
+# kernel's are clock sums a block.
 PHASES = {"bfloat16": ["build_m1", "product_half0", "epilogue_half0",
                        "product_half1", "epilogue_half1", "gate_and_store",
                        "jsum_and_tile_end"],
           "float32": ["tile_rows", "product_half0", "epilogue_half0",
                       "product_half1", "epilogue_half1",
                       "gate_and_jsum_half0", "jsum_half1_and_tile_end"]}
+BF16_MARKS, BF16_PROF_TILES = len(PHASES["bfloat16"]) + 1, 16
+# Before the marks, the bf16 kernel summed the clocks of each block's first
+# thread into 8 slots, in the order of PHASES["bfloat16"].
+SUMMED_SLOTS = 8
+# The shapes of the bf16 kernel's profile: the sampling cells' node buckets
+# at 64 samples, and the production shape.
+BF16_PROFILE_SHAPES = [(64, 24, (17, 24)), (64, 32, (25, 32)),
+                       (64, 40, (33, 39)), (128, 40, (15, 39))]
+# ... and for the timing against another checkout, the interactive cell's
+# (10 samples) and the other shapes of PERF.md's kernel table too.
+BF16_COMPARE_SHAPES = BF16_PROFILE_SHAPES + [
+    (10, 24, (17, 24)), (10, 32, (25, 32)), (10, 40, (33, 39)),
+    (8, 128, (100, 128)), (128, 42, (25, 39)), (5, 40, (15, 39))]
+
+
+def warpgroup_clocks(marks):
+    """What the bf16 kernel's clock marks (int64, (blocks, 2, tiles,
+    BF16_MARKS)) say, over the blocks' recorded tiles: each warpgroup's
+    mean clocks a tile by phase, the block's wall clocks a tile, and
+    ``hidden_share``: the part of each warpgroup's product during which the
+    other warpgroup was in an elementwise phase (building m1, an epilogue,
+    the gate or the j-sum), over all product clocks. In lock-step (the two
+    in their products together) it is about 0."""
+    import numpy as np
+
+    m = np.asarray(marks, dtype=np.float64)
+    ran = (m[:, :, :, 0] != 0).all(axis=1)          # (blocks, tiles)
+    names = PHASES["bfloat16"]
+    dur = np.diff(m, axis=3)           # (blocks, 2, tiles, phases): [k, k + 1]
+    tiles = ran.sum()
+    by_wg = [{n: float((dur[:, w, :, k] * ran).sum() / tiles)
+              for k, n in enumerate(names)} for w in range(2)]
+    # Phase k lies between marks k and k + 1.
+    prods = [(k, k + 1) for k, n in enumerate(names) if n.startswith("product")]
+    elem = [(k, k + 1) for k, n in enumerate(names)
+            if not n.startswith("product")]
+    wall = hidden = product = 0.0
+    for blk in range(m.shape[0]):
+        n = int(ran[blk].sum())
+        if n == 0:
+            continue
+        mb = m[blk, :, :n]
+        wall += mb[:, :, len(names)].max() - mb[:, 0, 0].min()
+        for w in range(2):
+            p = np.concatenate([mb[w][:, list(a)] for a in prods])
+            e = np.concatenate([mb[1 - w][:, list(a)] for a in elem])
+            product += (p[:, 1] - p[:, 0]).sum()
+            lo = np.maximum(p[:, None, 0], e[None, :, 0])
+            hi = np.minimum(p[:, None, 1], e[None, :, 1])
+            hidden += np.clip(hi - lo, 0, None).sum()
+    return {"tiles_recorded": int(tiles),
+            "wall_clocks_per_tile": wall / tiles,
+            "clocks_per_tile": [{n: int(c) for n, c in d.items()}
+                                for d in by_wg],
+            "hidden_share": hidden / product}
 
 
 def phase_clocks(torch, gk, B, N, sizes, dtype, H=420):
     """Where a block of the kernel of ``dtype`` spends its clocks: one
     launch per mode through the library's C entry with its optional clock
-    buffer (the first thread of each block adds the SM's clocks between
-    phases; the package's wrapper always passes none). In the f32 kernel
-    the product phases include building m1, which overlaps the products.
-    Only with ``--profile``."""
+    buffer (the package's wrapper always passes none). bf16: each
+    warpgroup's phases and the share of the product hidden behind the other
+    warpgroup's elementwise work (``warpgroup_clocks``); a library with the
+    earlier 8 summed slots gives their sums. float32: the first thread
+    of each block adds the SM's clocks between phases; the product phases
+    include building m1, which overlaps the products. Only with
+    ``--profile`` and in ``--compare-bf16``. Returns one record per mode."""
     import ctypes
 
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -581,6 +672,7 @@ def phase_clocks(torch, gk, B, N, sizes, dtype, H=420):
     a, _ = edge_inputs(torch, B, N, H, dtype, sizes, seed=B * N)
     w1p = gk.packed_w1(a["w1"])
     ptr = {k: t.data_ptr() for k, t in a.items()}
+    recs = []
     for mode in ("gcl", "coord"):
         gcl = mode == "gcl"
         clocks = torch.zeros(sms, slots(), dtype=torch.int64, device="cuda")
@@ -599,15 +691,22 @@ def phase_clocks(torch, gk, B, N, sizes, dtype, H=420):
             args["em"], args["bh"] = None, None
         check(torch.equal(out, gk.fused_edge_pass(**args, mode=mode)),
               "the clocked launch and the wrapper's disagree")
-        per_block = clocks.sum(0).double() / clocks.shape[0]
-        total = per_block.sum().item()
-        log("[profile] " + json.dumps({
-            "phase_clocks": {"B": B, "N": N, "H": H, "mode": mode,
-                             "dtype": name},
-            "clocks_per_block": {n: int(c) for n, c in
-                                 zip(PHASES[name], per_block.tolist())},
-            "share": {n: round(c / total, 4) for n, c in
-                      zip(PHASES[name], per_block.tolist())}}))
+        rec = {"phase_clocks": {"B": B, "N": N, "H": H, "mode": mode,
+                                "dtype": name}}
+        if bf16 and slots() != SUMMED_SLOTS:
+            rec.update(warpgroup_clocks(clocks.view(
+                sms, 2, BF16_PROF_TILES, BF16_MARKS).cpu().numpy()))
+        else:
+            names = PHASES[name]
+            per_block = clocks.sum(0).double() / clocks.shape[0]
+            total = per_block.sum().item()
+            rec["clocks_per_block"] = {n: int(c) for n, c in
+                                       zip(names, per_block.tolist())}
+            rec["share"] = {n: round(c / total, 4) for n, c in
+                            zip(names, per_block.tolist())}
+        log("[profile] " + json.dumps(rec))
+        recs.append(rec)
+    return recs
 
 
 def profile_request(torch, gen, kw, req_s):
@@ -4378,24 +4477,67 @@ print("TRAIN_RUN " + json.dumps(out), flush=True)
 """
 
 
-def compare_train(other):
-    """The backward call at the training shape and the train step of the
-    checkout at ``other`` (the parent's, say) and of this one, in turns:
-    other, this, this, other, each in a process of its own that imports
-    its own package. Prints one JSON line a run; returns non-zero if one
-    failed."""
+def compare_runs(other, script, tag, args=()):
+    """Run ``script`` (Python that prints one JSON line after ``tag``) in
+    the checkout at ``other`` (the parent's, say) and in this one, in
+    turns: other, this, this, other, each in a process of its own that
+    imports its own package. Logs one JSON line a run; returns non-zero if
+    one failed."""
     rc = 0
     for name, root in (("other", other), ("this", ROOT), ("this", ROOT),
                        ("other", other)):
-        p = subprocess.run([sys.executable, "-c", _TRAIN_RUN], cwd=root,
+        p = subprocess.run([sys.executable, "-c", script, *args], cwd=root,
                            capture_output=True, text=True, timeout=900)
-        line = [l for l in p.stdout.splitlines() if l.startswith("TRAIN_RUN ")]
+        line = [l for l in p.stdout.splitlines() if l.startswith(tag + " ")]
         if p.returncode or not line:
             log(f"[compare] {name} {root} failed:\n{(p.stdout + p.stderr)[-3000:]}")
             rc = 1
             continue
-        log(f"[compare] {json.dumps(dict(json.loads(line[0][10:]), run=name))}")
+        log(f"[compare] {json.dumps(dict(json.loads(line[0][len(tag) + 1:]), run=name))}")
     return rc
+
+
+def compare_train(other):
+    """The backward call at the training shape and the train step of the
+    checkout at ``other`` and of this one, in turns (``compare_runs``)."""
+    return compare_runs(other, _TRAIN_RUN, "TRAIN_RUN")
+
+
+# One checkout's bf16 kernel (the checkout is the working directory; this
+# file's functions do the timing and read the clocks), for compare_bf16.
+_BF16_RUN = r"""
+import importlib.util, json, sys, torch
+smoke, sys.argv = sys.argv[1], ["chip_smoke.py"]
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("chip_smoke_timing", smoke)
+cs = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(cs)
+from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
+torch.backends.cuda.matmul.allow_tf32 = False
+card = (torch.cuda.get_device_properties(0).multi_processor_count, 1.98e9)
+out = {"times": [], "clocks": []}
+for B, N, sizes in cs.BF16_COMPARE_SHAPES:
+    out["times"] += [{k: r[k] for k in ("mode", "B", "N", "kernel_ms",
+                                         "kernel_graph_ms",
+                                         "bound_us", "share_of_bound",
+                                         "max_abs_err")}
+                     for r in cs.kernel_phase(torch, gk, B, N, sizes, card,
+                                              dtypes=("bfloat16",))]
+for B, N, sizes in cs.BF16_PROFILE_SHAPES:
+    out["clocks"] += cs.phase_clocks(torch, gk, B, N, sizes, torch.bfloat16)
+print("BF16_RUN " + json.dumps(out))
+"""
+
+
+def compare_bf16(other):
+    """The bf16 edge kernel of the checkout at ``other`` and of this one, in
+    turns (``compare_runs``): at BF16_COMPARE_SHAPES each mode held against
+    its plain version and timed beside the bound, and at
+    BF16_PROFILE_SHAPES its clocks read. Logs the card first."""
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60).stdout.strip())
+    return compare_runs(other, _BF16_RUN, "BF16_RUN", (os.path.abspath(__file__),))
 
 
 def main() -> int:
@@ -4412,6 +4554,9 @@ def main() -> int:
     if "--compare-train" in sys.argv[1:]:
         return compare_train(
             os.path.abspath(sys.argv[sys.argv.index("--compare-train") + 1]))
+    if "--compare-bf16" in sys.argv[1:]:
+        return compare_bf16(
+            os.path.abspath(sys.argv[sys.argv.index("--compare-bf16") + 1]))
 
     # -- 1. environment ------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4658,10 +4803,11 @@ def main() -> int:
     log("[e2e] random weights: 0 valid molecules and diverging coordinates "
         "are expected and are not a failure")
     if "--profile" in sys.argv[1:]:
-        for dtype in (torch.bfloat16, torch.float32):
-            phase_clocks(torch, gk, N_SAMPLES, n_pad,
-                         (ref_n - VARIANCE, max_n), dtype)
-            phase_clocks(torch, gk, 128, 40, (15, 39), dtype)
+        for B, N, sizes in BF16_PROFILE_SHAPES:
+            phase_clocks(torch, gk, B, N, sizes, torch.bfloat16)
+        phase_clocks(torch, gk, N_SAMPLES, n_pad, (ref_n - VARIANCE, max_n),
+                     torch.float32)
+        phase_clocks(torch, gk, 128, 40, (15, 39), torch.float32)
         profile_request(torch, bf16_gen, kw,
                         requests["bfloat16"]["request_s"])
 

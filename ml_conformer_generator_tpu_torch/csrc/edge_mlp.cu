@@ -11,11 +11,12 @@
 //
 // What bounds it: at the main path's shapes (B = 64..128, N = 32..40, H = 420)
 // the m1 . W1 product is 2 B N^2 H^2 operations (tens of GFLOP) against a few
-// MB of inputs and outputs, so tensor-core operations bound it, not device
-// memory. The two SiLUs per edge element load the special-function and f32
-// units nearly as much: 2 B N^2 448 of them a launch. Every per-edge tensor
-// stays in shared memory and registers; only per-node rows, per-edge scalars
-// and W1 are read from device memory.
+// MB of inputs and outputs, so on the roofline tensor-core operations bound
+// it, not device memory. The two SiLUs per edge element load the special-
+// function and f32 units nearly as much: 2 B N^2 448 of them a launch; in
+// practice that elementwise work sets the pace (see the design). Every per-
+// edge tensor stays in shared memory and registers; only per-node rows, per-
+// edge scalars and W1 are read from device memory.
 //
 // ---- The design -------------------------------------------------------------
 // Rows are whole tiles of edges. A block owns TI whole target nodes of one
@@ -43,37 +44,54 @@
 // barrier and release the slot on another. No thread computes a W1 address.
 // The producer sits in a third warpgroup, which exists so that setmaxnreg
 // can move its registers to the consumers. Both consumer warpgroups read the
-// same tile, so W1 crosses from L2 once per 128 rows. L2 does not bound the
-// product (measured: with every tile copied twice its phases take 7% more
-// clocks at most), so there is no cluster and no multicast.
+// same tile, so each 28 KB slot feeds 128 rows of products (896 clocks of
+// the tensor cores); alone, the ring delivers a slot every ~400 clocks
+// (measured), so it keeps up.
 //
-// The output columns are walked in two halves of 224 (wgmma m64n224k16, 112
-// f32 accumulators a thread). After each half the accumulators pass through
-// bias, SiLU and the head's partial dot product in registers: a thread owns
-// two whole rows of its half, so the head needs two shuffles and no shared
-// memory. In gcl mode the first half's m2 waits in 56 registers (packed
-// bf16); when the second half is done the gate is known, and the gated m2 is
-// written over the warpgroup's own rows of m1 (dead by then), from where the
-// masked j-sum reads it. coord mode stores the head and no m2. The f32 order
-// of the head's sum differs from the plain version's; the tolerances in
-// chip_smoke.py (bf16 gcl 5e-3 + 1e-2 |ref|, coord 5e-2 + 5e-2 |ref|) allow it.
+// The output columns are walked in two halves (wgmma m64n224k16 for half 0,
+// 112 f32 accumulators a thread; half 1 is m64n200k16 where H <= 424, which
+// covers the model's 420, else m64n224k16). K steps that lie wholly past H
+// (zeros in m1 and W1) are skipped: 27 of 28 at H = 420. After each half the
+// accumulators pass through bias, SiLU and the head's partial dot product in
+// registers: a thread owns two whole rows of its half, so the head needs two
+// shuffles and no shared memory. In gcl mode the first half's m2 waits in 56
+// registers (packed bf16); when the second half is done the gate is known, and
+// the gated m2 is written over the warpgroup's own rows of m1 (dead by then),
+// from where the masked j-sum reads it; stmatrix writes it, four 8 x 8 tiles
+// an instruction. The gate re-reads m2 from its packed registers through an
+// asm the compiler cannot merge with the epilogue's unpacking: merged, it held
+// both halves of every pair as f32 from the epilogue on, spilled and
+// serialised the wgmmas (ptxas C7511), and the gcl product took 15% more
+// clocks than coord's; now the two take about the same. coord mode stores the
+// head and no m2. The f32 order of the head's sum differs from the plain
+// version's; the tolerances in chip_smoke.py (bf16 gcl 5e-3 + 1e-2 |ref|,
+// coord 5e-2 + 5e-2 |ref|) allow it.
 //
 // SiLU is x/2 (1 + tanh(x/2)) with tanh.approx: one special-function
 // operation instead of two, and the same errors against the plain version
 // as exp and divide gave (the result is rounded to bf16 right after).
 //
 // The phases of a tile (build m1, product, epilogue, product, epilogue, gate
-// and store, j-sum) run one after the other: the elementwise work does not
-// overlap the product. Because both warpgroups read the same W1 tile they
-// are in the product at the same time, and a warpgroup has no registers for
-// a second set of accumulators. Letting them alternate (each with its own
-// pass over W1, which L2 would bear) is open; it needs the m1 build and the
-// j-sum per warpgroup and a hand-over for nodes that span both. Two warps a
-// scheduler hide little latency, so the code is kept small enough for the
-// instruction cache: the m1 build is a rolled loop. In gcl mode the
-// accumulators and the first half's m2 leave too few registers for ptxas to
-// pipeline the wgmmas (its note C7511, and 56 bytes of spills): the gcl
-// product takes about 15% more clocks than coord's.
+// and store, j-sum) run one after the other, both warpgroups in lock-step:
+// the elementwise work does not overlap the product. What bounds the kernel
+// is that elementwise work, about 60% of a tile's clocks (the m1 build alone
+// a third): it is bound by latency, with two warps a scheduler, at about a
+// third of what the special-function unit allows. So the code is kept small
+// enough for the instruction cache: the m1 build is a rolled loop.
+//
+// Why not a ping-pong of the two warpgroups (each its own rows, its own m1 and
+// its own pass over W1, the product of one behind the elementwise work of the
+// other), measured on the H100: it hides 70-85% of the product's clocks, and
+// no launch gets shorter. Each W1 slot then feeds 64 rows, so every slot's
+// fixed costs (a consumer spends ~176 clocks a slot beyond its products; the
+// ring gives at most a slot every ~400) are paid twice as often, and a
+// warpgroup's elementwise phases, with one warp a scheduler instead of two,
+// take as long for its 64 rows as lock-step takes for 128. Its best form
+// (output thirds of 168, 168 and 112 columns so that gcl fits its registers,
+// four 21 KB slots, one turn a warpgroup a tile) equalled lock-step in gcl and
+// lost 4-7% in coord, which already runs at the card's power limit. Sharing
+// each slot between the two instead keeps them in lock-step; multicasting W1
+// to a cluster of two blocks only slowed the ring.
 //
 // Padding is exact: padded hidden units see zero weights and a zero bias,
 // stay at SiLU(0) = 0 and carry zero head weight. Rows past the last edge of
@@ -101,6 +119,7 @@ constexpr int kRows = 128;                 // edge rows per block tile
 constexpr int kNP = kMaxHidden;            // padded output width
 constexpr int kNH = kNP / 2;               // columns per wgmma (one half)
 constexpr int kNT = kNH / 8;               // 8-column accumulator tiles per half
+constexpr int kNarrow = 200;               // half 1's width where H <= kNH + kNarrow
 constexpr int kKTileBytes = kRows * 128;   // one K-tile of m1: 128 rows x 64 bf16
 constexpr int kABytes = (kNP / 64) * kKTileBytes;
 constexpr int kWTileBytes = kNH * 128;     // one packed W1 tile: 224 rows x 64 bf16
@@ -108,7 +127,11 @@ constexpr int kRing = 3;                   // W1 ring slots
 constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kBf16Threads = kConsumers + 128;  // plus the producer's warpgroup
 constexpr int kM1Threads = (kNP / 8) * 4;   // threads that build m1: 56 chunks x 4 row groups
-constexpr int kProfSlots = 8;              // clock slots per block (profiling)
+// Clock marks of a warpgroup's tile (profiling; see mlcg_edge_mlp), for the
+// first kProfTiles tiles of each block.
+constexpr int kProfMarks = 8;
+constexpr int kProfTiles = 16;
+constexpr int kProfSlots = 2 * kProfTiles * kProfMarks;
 
 // Shared memory of the bf16 kernel, from a 1024-byte aligned base.
 constexpr int kOffRing = kABytes;
@@ -129,6 +152,16 @@ __device__ __forceinline__ float bf_hi(uint32_t p) { return __uint_as_float(p & 
 __device__ __forceinline__ uint32_t pack2(float a, float b) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);   // a in the low half
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The two bf16 of a packed pair as f32, through an asm the compiler does not
+// merge with an earlier unpacking of the same pair: the gate re-reads m2 from
+// its packed registers instead of holding both halves as f32 from the
+// epilogue on (twice the registers, and spills).
+__device__ __forceinline__ float2 unpack2(uint32_t p) {
+  uint32_t lo, hi;
+  asm("shl.b32 %0, %2, 16;\n\tand.b32 %1, %2, 0xffff0000;" : "=r"(lo), "=r"(hi) : "r"(p));
+  return make_float2(__uint_as_float(lo), __uint_as_float(hi));
 }
 
 // SiLU for a value that is rounded to bf16 right after, as
@@ -177,6 +210,13 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// Four 8 x 8 bf16 matrices from the accumulator layout into shared memory:
+// lane 8 m + i gives the address of row i of matrix m.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, uint32_t a, uint32_t b,
+                                            uint32_t c, uint32_t d) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
 }
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
@@ -227,6 +267,31 @@ __device__ __forceinline__ void wgmma_m64n224k16(float (&d)[4 * kNT], uint64_t a
       " %112, %113, p, 1, 1, 0, 0;\n}\n"
       : MLCG_R16(0), MLCG_R16(16), MLCG_R16(32), MLCG_R16(48), MLCG_R16(64),
         MLCG_R16(80), MLCG_R16(96)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same with 200 columns (half 1 where H <= kNH + kNarrow): d[0 .. 99].
+__device__ __forceinline__ void wgmma_m64n200k16(float (&d)[4 * kNT], uint64_t a,
+                                                 uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %102, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99},"
+      " %100, %101, p, 1, 1, 0, 0;\n}\n"
+      : MLCG_R16(0), MLCG_R16(16), MLCG_R16(32), MLCG_R16(48), MLCG_R16(64), MLCG_R16(80), MLCG_R4(96)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -331,10 +396,11 @@ __device__ __forceinline__ void build_m1(
 }
 
 // TI: whole target nodes per 128-row tile. tpg: tiles per graph; a tile
-// holds nodes of one graph. nkt: K-tiles of W1 (HP / 64).
+// holds nodes of one graph. nkt: K-tiles of W1 (HP / 64). N1: the columns
+// of half 1 (kNH, or kNarrow where H <= kNH + kNarrow).
 // w1p: the packed W1, 2 * nkt tiles of kWTileBytes. prof: null, or
-// kProfSlots clock sums per block (see mlcg_edge_mlp).
-template <bool GCL>
+// kProfSlots clock marks per block (see mlcg_edge_mlp).
+template <bool GCL, int N1>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
                      const bf16* __restrict__ u, const bf16* __restrict__ v,
@@ -411,28 +477,24 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
   const int r0 = wg * 64 + (warp & 3) * 16 + g;   // this thread's rows: r0, r0 + 8
   const uint32_t a_base = smem_u32(A) + wg * (64 * 128);
   const float bhv = bh ? __bfloat162float(bh[0]) : 0.0f;
-  const bool clk = prof != nullptr && tid == 0;
-  long long t_prev = 0;
-  auto lap = [&](int slot) {   // prof starts as zeros
-    if (clk) {
-      const long long now = clock64();
-      prof[(size_t)blockIdx.x * kProfSlots + slot] += now - t_prev;
-      t_prev = now;
-    }
-  };
+  long long* clk = prof != nullptr && (tid & 127) == 0
+      ? prof + ((size_t)blockIdx.x * 2 + wg) * kProfTiles * kProfMarks : nullptr;
 
   float acc[4 * kNT];
   int slot = 0;
   uint32_t phase = 0;
 
-  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+  for (int it = 0, tile = blockIdx.x; tile < ntiles; ++it, tile += gridDim.x) {
     const int b = tile / tpg;                     // the tile's graph
     const int i0 = (tile - b * tpg) * TI;         // its first target node
     const int nodes = min(TI, N - i0);
     const int node0 = b * N + i0;
     const int nrows = nodes * N;                  // real rows of this tile
     const size_t e0 = (size_t)node0 * N;          // first edge of this tile
-    if (clk) t_prev = clock64();
+    auto mark = [&](int k) {
+      if (clk != nullptr && it < kProfTiles) clk[it * kProfMarks + k] = clock64();
+    };
+    mark(0);
 
     // 0. The edge scalars and the edge mask of the tile's rows.
     for (int i = tid; i < kRows * kMaxE; i += kConsumers) {
@@ -454,9 +516,10 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
     // m1 was written by ordinary stores; wgmma reads it through the async proxy.
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     named_barrier(1, kConsumers);
-    lap(0);
+    mark(1);
 
-    // 2. m1 . W1^T in two halves of 224 columns, each followed by its epilogue.
+    // 2. m1 . W1^T in two halves of 224 and N1 columns, each followed by its
+    //    epilogue. K steps past H (zeros in m1 and W1) are skipped.
     float hd0 = 0.0f, hd1 = 0.0f;     // partial heads of rows r0 and r0 + 8
 #pragma unroll
     for (int i = 0; i < 4 * kNT; ++i) acc[i] = 0.0f;   // dead while m1 is built
@@ -470,9 +533,15 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
         const uint32_t a_kt = a_base + kt * kKTileBytes;
         const uint32_t b_kt = ring + slot * kWTileBytes;
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)   // 16 columns = 32 bytes inside the swizzled row
-          wgmma_m64n224k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
-                           (kt | kk) != 0);
+        for (int kk = 0; kk < 4; ++kk) {   // 16 columns = 32 bytes inside the swizzled row
+          if (kk > 0 && kt * 64 + kk * 16 >= H) break;
+          if (h == 0 || N1 == kNH)
+            wgmma_m64n224k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
+                             (kt | kk) != 0);
+          else
+            wgmma_m64n200k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
+                             (kt | kk) != 0);
+        }
         wgmma_commit();
         if (kt > 0) {
           wgmma_wait<1>();               // the previous tile's products are done
@@ -483,11 +552,11 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
       }
       wgmma_wait<0>();
       if (lane == 0) mbar_arrive(empty + 8 * prev);
-      lap(1 + 2 * h);
+      mark(2 + 2 * h);
 
       // m2 = SiLU(acc + b1) rounded, and its share of the head.
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
+      for (int nt = 0; nt < (h == 0 ? kNT : N1 / 8); ++nt) {
         const int col = h * kNH + nt * 8 + 2 * t4;
         const float2 bias = *reinterpret_cast<const float2*>(b1f + col);
         const float2 w = *reinterpret_cast<const float2*>(whf + col);
@@ -505,7 +574,7 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
           }
         }
       }
-      lap(2 + 2 * h);
+      mark(3 + 2 * h);
     }
 
     // 3. The head of each edge: the four lanes of a row hold its parts.
@@ -521,28 +590,44 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
         if (r0 < nrows) out[e0 + r0] = hd0;
         if (r0 + 8 < nrows) out[e0 + r0 + 8] = hd1;
       }
+      mark(6);
     } else {
       // 4. The gated m2 goes over this warpgroup's rows of m1, which every
       //    warp of the group has finished reading.
       const float g0 = bf_lo(pack2(1.0f / (1.0f + expf(-hd0)), 0.0f));
       const float g1 = bf_lo(pack2(1.0f / (1.0f + expf(-hd1)), 0.0f));
       named_barrier(2 + wg, 128);
-      unsigned char* row0 = A + r0 * 128 + t4 * 4;   // row r0 + 8 is 1024 bytes on
-      const int swz = r0 & 7;                        // the same for r0 + 8
+      // stmatrix x4 of 8-column groups (nt, nt + 1): matrices (rows of r0,
+      // group nt), (rows of r0 + 8, nt), (r0, nt + 1), (r0 + 8, nt + 1); this
+      // lane gives row (lane & 7) of matrix lane >> 3. Half 1's groups past
+      // N1 hold m1's zero columns, which the j-sum does not read.
+      const int srow = wg * 64 + (warp & 3) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+      const uint32_t srow_base = smem_u32(A) + srow * 128;
+      const int sswz = srow & 7;
+      const int scg = lane >> 4;                     // 0 or 1: group nt or nt + 1
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
 #pragma unroll
-        for (int nt = 0; nt < kNT; ++nt) {
-          const int cg = h * kNT + nt;               // 8-column group of the row
-          unsigned char* dst = row0 + (cg >> 3) * kKTileBytes + (((cg & 7) ^ swz) << 4);
-          const uint32_t p0 = h == 0 ? m2p[2 * nt] : __float_as_uint(acc[4 * nt]);
-          const uint32_t p1 = h == 0 ? m2p[2 * nt + 1] : __float_as_uint(acc[4 * nt + 2]);
-          *reinterpret_cast<uint32_t*>(dst) = pack2(bf_lo(p0) * g0, bf_hi(p0) * g0);
-          *reinterpret_cast<uint32_t*>(dst + 1024) = pack2(bf_lo(p1) * g1, bf_hi(p1) * g1);
+        for (int nt = 0; nt < (h == 0 ? kNT : N1 / 8); nt += 2) {
+          uint32_t v[4];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            // An odd last group (N1 = 200) also goes into the group after it:
+            // a padded one past H, which the j-sum does not read and the
+            // next tile's build rewrites.
+            const int n = min(nt + k, (h == 0 ? kNT : N1 / 8) - 1);
+            const float2 m0 = unpack2(h == 0 ? m2p[2 * n] : __float_as_uint(acc[4 * n]));
+            const float2 m1 = unpack2(h == 0 ? m2p[2 * n + 1] : __float_as_uint(acc[4 * n + 2]));
+            v[2 * k] = pack2(m0.x * g0, m0.y * g0);
+            v[2 * k + 1] = pack2(m1.x * g1, m1.y * g1);
+          }
+          const int cg = h * kNT + nt + scg;         // this lane's 8-column group
+          stmatrix_x4(srow_base + (cg >> 3) * kKTileBytes + (((cg & 7) ^ sswz) << 4),
+                      v[0], v[1], v[2], v[3]);
         }
       }
       named_barrier(1, kConsumers);
-      lap(5);
+      mark(6);
 
       // 5. Masked j-sum in f32: a thread owns a 16-byte chunk (8 columns) of
       //    one node and walks its rows.
@@ -584,21 +669,22 @@ edge_mlp_bf16_kernel(int N, int H, int E, int nkt, int TI, int tpg, int ntiles,
     }
     // The next tile rewrites m1 and the mask.
     named_barrier(1, kConsumers);
-    lap(6);
+    mark(7);
   }
 }
 
 #undef MLCG_R4
 #undef MLCG_R16
 
-template <bool GCL>
+template <bool GCL, int N1>
 cudaError_t launch_bf16(int B, int N, int H, int E, const void* u, const void* v,
                         const void* ef, const void* em, const void* w_e, int ld_we,
                         const void* b0, const void* w1p, const void* b1,
                         const void* wh, const void* bh, float norm, float* out,
                         long long* prof, cudaStream_t stream) {
-  auto kern = edge_mlp_bf16_kernel<GCL>;
-  // The shared-memory limit and the SM count are read once per device.
+  auto kern = edge_mlp_bf16_kernel<GCL, N1>;
+  // The shared-memory limit and the SM count are read once per device (and
+  // instantiation).
   static int sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -645,9 +731,11 @@ int mlcg_edge_mlp_prof_slots() { return kProfSlots; }
 // ops/gcl_kernel.py).
 // out: float32, (B, N, H) for gcl, (B, N*N) for coord.
 // prof: null, or zeros, one block per SM times mlcg_edge_mlp_prof_slots()
-// int64, to which each block's first thread adds clocks: 0 build m1, 1 and 3
-// the product of half 0 and 1, 2 and 4 its epilogue, 5 gate and store,
-// 6 j-sum and the tile's last barrier.
+// int64: each block's (warpgroup, tile, mark) for its first 16 tiles, where
+// the first thread of each warpgroup writes the SM's clock at the marks
+// 0 tile start, 1 m1 built, 2 half 0's product done, 3 its epilogue done,
+// 4 half 1's product done, 5 its epilogue done, 6 gate and store done, 7 the
+// j-sum and the tile's last barrier done. coord mode writes 6 at 5.
 int mlcg_edge_mlp(int mode, int B, int N, int H, int E, const void* u,
                   const void* v, const void* ef, const void* em,
                   const void* w_e, int ld_we, const void* b0, const void* w1p,
@@ -660,9 +748,18 @@ int mlcg_edge_mlp(int mode, int B, int N, int H, int E, const void* u,
   cudaStream_t s = (cudaStream_t)stream;
   float* o = (float*)out;
   long long* p = (long long*)prof;
-  const cudaError_t err = mode == 0
-      ? launch_bf16<true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s)
-      : launch_bf16<false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s);
+  // Half 1 as narrow as H allows: the product, its epilogue and the gate
+  // skip the padded columns, and gcl holds fewer registers through it.
+  const bool narrow = H <= kNH + kNarrow;
+  cudaError_t err;
+  if (mode == 0)
+    err = narrow
+        ? launch_bf16<true, kNarrow>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s)
+        : launch_bf16<true, kNH>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s);
+  else
+    err = narrow
+        ? launch_bf16<false, kNarrow>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s)
+        : launch_bf16<false, kNH>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, o, p, s);
   return (int)err;
 }
 

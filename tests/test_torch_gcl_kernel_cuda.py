@@ -46,9 +46,13 @@ def _inputs(dtype, B=3, N=42, H=64, E=2, seed=0):
 
 
 # (B, N, H): nodes that do not fill a tile (42, 24), the full width (420),
-# more than 48 and more than 64 nodes, and the most nodes a tile holds.
+# more than 48 and more than 64 nodes, and the most nodes a tile holds; the
+# sampling cells' node buckets at 64 samples (several tiles a block), 10
+# samples at N = 40 (one partly filled wave), an odd N past 64 (one node a
+# tile, the second m-tile partly filled) and a full tile of one node.
 BF16_SHAPES = [(3, 42, 64), (3, 40, 420), (5, 24, 420), (2, 64, 420),
-               (1, 100, 64)]
+               (1, 100, 64), (64, 24, 420), (64, 32, 420), (64, 40, 420),
+               (10, 40, 420), (2, 65, 420), (1, 128, 420)]
 F32_SHAPES = [(3, 42, 64), (3, 40, 420), (2, 64, 420), (1, 100, 64),
               (2, 128, 420)]
 
@@ -82,6 +86,20 @@ def test_cuda_tensors_launch_the_kernel(card, mode, dtype, shape):
     torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
     if mode == "gcl":
         assert out[nm == 0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
+def test_bf16_launches_are_bit_equal(card, mode):
+    """Two launches with the same inputs give the same bits: each node's
+    j-sum is added in a fixed order, with no atomics (the sampler's graphs
+    rely on it)."""
+    args, _ = _inputs(torch.bfloat16, B=64, N=40, H=420)
+    if mode == "coord":
+        args["em"], args["bh"] = None, None
+    first = gk.fused_edge_pass(**args, mode=mode)
+    second = gk.fused_edge_pass(**args, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
