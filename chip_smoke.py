@@ -11,9 +11,12 @@ sm_90a):
         # the train step of the checkout in DIR and of this one, in turns
     python3 chip_smoke.py --compare-bf16 DIR    # only the bf16 edge kernel
         # of the checkout in DIR and of this one, in turns: times beside the
-        # bound and the phase clocks
-    python3 chip_smoke.py --drugs     # only the bf16 kernel's wide path and
-        # EDM GEOM-Drugs' front end (phases 3's wide shapes and 4b)
+        # bound, the output's digest and the phase clocks, at MLCG's and at
+        # GEOM-Drugs' width
+    python3 chip_smoke.py --drugs     # only the bf16 kernel at GEOM-Drugs'
+        # width (phase 3's wide shapes, the drugs cell's N <= 128 shapes)
+        # and EDM GEOM-Drugs' front end (4b); with --profile also the phase
+        # clocks of both bodies
 
 It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
 csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32,
@@ -237,6 +240,7 @@ with code 2 before doing anything.
 """
 
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -524,6 +528,8 @@ def kernel_phase(torch, gk, B, N, sizes, card, H=420,
             excess = (err - atol - rtol * ref.abs()).max().item()
             rec = {"kernel": "edge_mlp", "mode": mode, "dtype": name,
                    "B": B, "N": N, "H": H,
+                   "out_sha": hashlib.sha256(
+                       got.cpu().numpy().tobytes()).hexdigest()[:16],
                    "max_abs_err": err.max().item(),
                    "ref_max_abs": ref.abs().max().item(),
                    "ref_mean_abs": ref.abs().mean().item(),
@@ -561,6 +567,13 @@ def kernel_phase(torch, gk, B, N, sizes, card, H=420,
 WIDE_SHAPES = [(16, 184, (181, 181)), (16, 144, (144, 144)),
                (1, 192, (192, 192))]
 DRUGS_H = 256
+# The drugs cell's requests at 96 and 48 atoms: the N <= 128 body at that
+# width.
+DRUGS_SHAPES = [(16, 96, (96, 96)), (16, 48, (48, 48))]
+# Its phase clocks (``--drugs --profile``) and the timing against another
+# checkout (``--compare-bf16``): the largest request on the wide body and
+# one on the N <= 128 body.
+DRUGS_PROFILE_SHAPES = [(16, 184, (181, 181)), (16, 96, (96, 96))]
 
 
 def wide_kernel_phase(torch, gk, card):
@@ -4633,24 +4646,28 @@ from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
 torch.backends.cuda.matmul.allow_tf32 = False
 card = (torch.cuda.get_device_properties(0).multi_processor_count, 1.98e9)
 out = {"times": [], "clocks": []}
-for B, N, sizes in cs.BF16_COMPARE_SHAPES:
-    out["times"] += [{k: r[k] for k in ("mode", "B", "N", "kernel_ms",
+drugs = [(s, cs.DRUGS_H) for s in cs.DRUGS_PROFILE_SHAPES]
+for (B, N, sizes), H in [(s, 420) for s in cs.BF16_COMPARE_SHAPES] + drugs:
+    out["times"] += [{k: r[k] for k in ("mode", "B", "N", "H", "kernel_ms",
                                          "kernel_graph_ms",
                                          "bound_us", "share_of_bound",
-                                         "max_abs_err")}
+                                         "max_abs_err", "out_sha")}
                      for r in cs.kernel_phase(torch, gk, B, N, sizes, card,
-                                              dtypes=("bfloat16",))]
-for B, N, sizes in cs.BF16_PROFILE_SHAPES:
-    out["clocks"] += cs.phase_clocks(torch, gk, B, N, sizes, torch.bfloat16)
+                                              H=H, dtypes=("bfloat16",))]
+for (B, N, sizes), H in [(s, 420) for s in cs.BF16_PROFILE_SHAPES] + drugs:
+    out["clocks"] += cs.phase_clocks(torch, gk, B, N, sizes, torch.bfloat16,
+                                     H=H)
 print("BF16_RUN " + json.dumps(out))
 """
 
 
 def compare_bf16(other):
     """The bf16 edge kernel of the checkout at ``other`` and of this one, in
-    turns (``compare_runs``): at BF16_COMPARE_SHAPES each mode held against
-    its plain version and timed beside the bound, and at
-    BF16_PROFILE_SHAPES its clocks read. Logs the card first."""
+    turns (``compare_runs``): at BF16_COMPARE_SHAPES (H = 420) and
+    DRUGS_PROFILE_SHAPES (H = 256) each mode held against its plain
+    version, timed beside the bound and its output's bits digested, and at
+    BF16_PROFILE_SHAPES and DRUGS_PROFILE_SHAPES its clocks read. Logs the
+    card first."""
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60).stdout.strip())
@@ -4715,6 +4732,13 @@ def main() -> int:
         from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
 
         wide_kernel_phase(torch, gk, card)
+        for B, N, sizes in DRUGS_SHAPES:
+            kernel_phase(torch, gk, B, N, sizes, card, H=DRUGS_H,
+                         dtypes=("bfloat16",))
+        if "--profile" in sys.argv[1:]:
+            for B, N, sizes in DRUGS_PROFILE_SHAPES:
+                phase_clocks(torch, gk, B, N, sizes, torch.bfloat16,
+                             H=DRUGS_H)
         drugs_phase(torch, gk)
         log(smi)
         log(json.dumps({"ok": True, "device": {

@@ -34,13 +34,19 @@
 // packed m2 does not fit a thread's 232, and because the threads that build
 // m1 then write plain 16-byte chunks instead of the A-fragment layout. The
 // threads that build it own a chunk of columns each and share a source node's v
-// row between the tile's target nodes (see build_m1).
+// row between the tile's target nodes (see build_m1). The map is sized to the
+// columns H has: 56 chunks x every fourth row (224 threads) where H > 256, 32
+// chunks x every eighth row (all 256 consumers) where H <= 256, so that at
+// GEOM-Drugs' H = 256 no thread builds zero columns and each builds half the
+// rows it would at H = 420.
 //
 // W1 is packed once per weight by the wrapper (ops/gcl_kernel.py::pack_w1):
-// zero-padded to 448 output rows x HP input columns (HP = 64 ceil(H / 64)) and
-// cut into tiles of 224 output rows x 64 input columns, each tile one
-// contiguous 28,672-byte block already in the swizzled layout. One producer
-// thread streams the tiles through a ring of three slots with one
+// zero-padded to HP input columns (HP = 64 ceil(H / 64)), its output rows in
+// two halves, each cut into tiles of 64 input columns, each tile one
+// contiguous block already in the swizzled layout: half 0 in tiles of 224
+// rows (28,672 bytes), half 1 in tiles of its width's rows, 32 (4,096 bytes)
+// where 224 < H <= 256, else 224 (rows past H are zeros). One producer
+// thread streams the tiles through a ring of three 28,672-byte slots with one
 // cp.async.bulk per tile, completing on an mbarrier; consumers wait on that
 // barrier and release the slot on another. No thread computes a W1 address.
 // The producer sits in a third warpgroup, which exists so that setmaxnreg
@@ -50,9 +56,10 @@
 // (measured), so it keeps up.
 //
 // The output columns are walked in two halves (wgmma m64n224k16 for half 0,
-// 112 f32 accumulators a thread; half 1 is m64n200k16 where H <= 424, which
-// covers the model's 420, else m64n224k16). K steps that lie wholly past H
-// (zeros in m1 and W1) are skipped: 27 of 28 at H = 420. After each half the
+// 112 f32 accumulators a thread; half 1 as narrow as H allows: m64n32k16
+// where 224 < H <= 256, which covers GEOM-Drugs' 256, m64n200k16 where H <=
+// 424, which covers MLCG's 420, else m64n224k16). K steps that lie wholly
+// past H (zeros in m1 and W1) are skipped: 27 of 28 at H = 420. After each half the
 // accumulators pass through bias, SiLU and the head's partial dot product in
 // registers: a thread owns two whole rows of its half, so the head needs two
 // shuffles and no shared memory. In gcl mode the first half's m2 waits in 56
@@ -143,13 +150,20 @@ constexpr int kNP = kMaxHidden;            // padded output width
 constexpr int kNH = kNP / 2;               // columns per wgmma (one half)
 constexpr int kNT = kNH / 8;               // 8-column accumulator tiles per half
 constexpr int kNarrow = 200;               // half 1's width where H <= kNH + kNarrow
+constexpr int kSlim = 32;                  // ... and where kNH < H <= kNH + kSlim
 constexpr int kKTileBytes = kRows * 128;   // one K-tile of m1: 128 rows x 64 bf16
 constexpr int kABytes = (kNP / 64) * kKTileBytes;
-constexpr int kWTileBytes = kNH * 128;     // one packed W1 tile: 224 rows x 64 bf16
+constexpr int kWTileBytes = kNH * 128;     // a ring slot, a half-0 W1 tile: 224 rows x 64 bf16
 constexpr int kRing = 3;                   // W1 ring slots
 constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kBf16Threads = kConsumers + 128;  // plus the producer's warpgroup
-constexpr int kM1Threads = (kNP / 8) * 4;   // threads that build m1: 56 chunks x 4 row groups
+// The m1 build's map (see build_m1) by half 1's width N1: where it is kSlim
+// (H <= 256: 32 chunks of 8 columns) every consumer thread builds, a chunk and
+// every eighth row; else 56 chunks x every fourth row, 224 threads.
+template <int N1> constexpr int kM1Groups = N1 == kSlim ? 8 : 4;
+template <int N1> constexpr int kM1Chunks = N1 == kSlim ? kConsumers / 8 : kNP / 8;
+// Rows of a packed half-1 tile of W1 (ops/gcl_kernel.py::pack_w1).
+template <int N1> constexpr int kW1Rows1 = N1 == kSlim ? kSlim : kNH;
 // Clock marks of a warpgroup's tile (profiling; see mlcg_edge_mlp), for the
 // first kProfTiles tiles of each block.
 constexpr int kProfMarks = 8;
@@ -320,9 +334,24 @@ __device__ __forceinline__ void wgmma_m64n200k16(float (&d)[4 * kNT], uint64_t a
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// The same with 32 columns (half 1 where kNH < H <= kNH + kSlim): d[0 .. 15].
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4 * kNT], uint64_t a,
+                                                uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : MLCG_R16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // One pass of build_m1 over the source nodes, for the NB target nodes from
 // node0 + t0: no branch inside, so that the nodes' arithmetic interleaves.
-template <int EE, int NB>
+// G: the row groups (a thread takes every G-th source node).
+template <int EE, int NB, int G>
 __device__ __forceinline__ void build_m1_pass(
     unsigned char* dst, int cc, const float (&bb)[8], const float (&we)[EE][8],
     const float* ef_s, const bf16* __restrict__ u_c, const bf16* __restrict__ v_c,
@@ -351,8 +380,8 @@ __device__ __forceinline__ void build_m1_pass(
   // Not unrolled: the kernel's code has to stay inside the instruction
   // cache, and the register copy at the end is cheap.
 #pragma unroll 1
-  for (int j = jg; j < N; j += 4) {
-    const bf16* vp = v_c + (size_t)min(j + 4, N - 1) * H;   // the last one is unused
+  for (int j = jg; j < N; j += G) {
+    const bf16* vp = v_c + (size_t)min(j + G, N - 1) * H;   // the last one is unused
     vl_next = *reinterpret_cast<const uint2*>(vp);
     vh_next = hi_ok ? *reinterpret_cast<const uint2*>(vp + 4) : zero2;
     const float vf[8] = {bf_lo(vl.x), bf_hi(vl.x), bf_lo(vl.y), bf_hi(vl.y),
@@ -379,24 +408,26 @@ __device__ __forceinline__ void build_m1_pass(
 
 // m1 = SiLU(u_i + v_j + e_ij . W_e + b0) of one tile, into A: row ti * N + j
 // for the tile's target nodes node0 + ti (ti < nodes) and the graph's source
-// nodes j < N. A thread owns one 16-byte chunk of columns (8 of them) and
-// every fourth source node. It loads v_j once for up to four target nodes,
-// whose u_i + b0 it holds in registers, and starts the next j's loads before
-// this j's arithmetic. EE: edge scalars computed (those past E are zeros);
-// b0f, wef (by scalar, then column) and ef_s (by row, kMaxE a row) are the
-// staged f32 copies in shared memory.
-template <int EE>
+// nodes j < N. Thread tid < NC G owns one 16-byte chunk of columns (8 of
+// them), the first NC chunks, and every G-th source node. It loads v_j once
+// for up to four target nodes, whose u_i + b0 it holds in registers, and
+// starts the next j's loads before this j's arithmetic. Columns of the NC
+// chunks past H are built as zeros; those past the NC chunks are never read
+// (NC 8 >= 16 ceil(H / 16)). EE: edge scalars computed (those past E are
+// zeros); b0f, wef (by scalar, then column) and ef_s (by row, kMaxE a row)
+// are the staged f32 copies in shared memory.
+template <int EE, int G, int NC>
 __device__ __forceinline__ void build_m1(
     unsigned char* A, const float* b0f, const float* wef, const float* ef_s,
     const bf16* __restrict__ u, const bf16* __restrict__ v, int tid, int N,
     int H, int b, int node0, int nodes, int nrows) {
-  const int c = tid % (kNP / 8), jg = tid / (kNP / 8);
+  const int c = tid % NC, jg = tid / NC;
   const int k0 = c * 8;
   const bool lo_ok = k0 < H, hi_ok = k0 + 4 < H;   // H is a multiple of 4
   unsigned char* dst = A + (c >> 3) * kKTileBytes;
   const int cc = c & 7;
   // Rows past the tile's last edge, and padded columns, are zeros.
-  for (int r = (lo_ok ? nrows : 0) + jg; r < kRows; r += 4)
+  for (int r = (lo_ok ? nrows : 0) + jg; r < kRows; r += G)
     *reinterpret_cast<uint4*>(dst + r * 128 + ((cc ^ (r & 7)) << 4)) =
         make_uint4(0u, 0u, 0u, 0u);
   if (!lo_ok) return;
@@ -411,19 +442,21 @@ __device__ __forceinline__ void build_m1(
   const bf16* v_c = v + (size_t)b * N * H + k0;
   int t0 = 0;
   for (; t0 + 4 <= nodes; t0 += 4)
-    build_m1_pass<EE, 4>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0);
+    build_m1_pass<EE, 4, G>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0);
   switch (nodes - t0) {
-    case 3: build_m1_pass<EE, 3>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
-    case 2: build_m1_pass<EE, 2>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
-    case 1: build_m1_pass<EE, 1>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    case 3: build_m1_pass<EE, 3, G>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    case 2: build_m1_pass<EE, 2, G>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
+    case 1: build_m1_pass<EE, 1, G>(dst, cc, bb, we, ef_s, u_c, v_c, hi_ok, jg, N, H, t0); break;
     default: break;
   }
 }
 
 // TI: whole target nodes per 128-row tile. tpg: tiles per graph; a tile
 // holds nodes of one graph. nkt: K-tiles of W1 (HP / 64). N1: the columns
-// of half 1 (kNH, or kNarrow where H <= kNH + kNarrow).
-// w1p: the packed W1, 2 * nkt tiles of kWTileBytes. prof: null, or
+// of half 1 (kNH; kNarrow where H <= kNH + kNarrow; kSlim where kNH < H <=
+// kNH + kSlim), which also sets the m1 build's map.
+// w1p: the packed W1, nkt tiles of kWTileBytes (half 0), then nkt of
+// kW1Rows1<N1> rows of 128 bytes (half 1). prof: null, or
 // kProfSlots clock marks per block (see mlcg_edge_mlp). WIDE (128 < N <=
 // kMaxNodes): a tile of tpg is a work item of TI nodes, TI + 1 tiles of
 // rows (see the notes at the top); the marks are its first tile's, 7 at its
@@ -483,6 +516,7 @@ __device__ __forceinline__ void edge_mlp_bf16_body(
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == kConsumers) {
       const unsigned char* src = reinterpret_cast<const unsigned char*>(w1p);
+      constexpr uint32_t kBytes1 = kW1Rows1<N1> * 128;   // a half-1 tile
       int s = 0;
       uint32_t ph = 0;
       for (int t = 0, tile = blockIdx.x; t < my_tiles; ++t, tile += gridDim.x) {
@@ -490,10 +524,17 @@ __device__ __forceinline__ void edge_mlp_bf16_body(
         const int rounds = WIDE ? min(TI, N - (tile % tpg) * TI) + 1 : 1;
         for (int round = 0; round < rounds; ++round) {
           for (int w = 0; w < 2 * nkt; ++w) {
+            uint32_t bytes = kWTileBytes;
+            size_t at = (size_t)w * kWTileBytes;
+            if constexpr (kBytes1 != kWTileBytes) {   // half 1's narrower tiles
+              if (w >= nkt) {
+                bytes = kBytes1;
+                at = (size_t)nkt * kWTileBytes + (size_t)(w - nkt) * kBytes1;
+              }
+            }
             mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
-            mbar_expect_tx(full + 8 * s, kWTileBytes);
-            bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes,
-                      kWTileBytes, full + 8 * s);
+            mbar_expect_tx(full + 8 * s, bytes);
+            bulk_load(ring + s * kWTileBytes, src + at, bytes, full + 8 * s);
             if (++s == kRing) { s = 0; ph ^= 1; }
           }
         }
@@ -553,13 +594,14 @@ __device__ __forceinline__ void edge_mlp_bf16_body(
     named_barrier(1, kConsumers);
 
     // 1. m1 (see build_m1); the tile's source nodes start at row j0 of v.
-    if (tid < kM1Threads) {
+    constexpr int kG = kM1Groups<N1>, kNC = kM1Chunks<N1>;
+    if (tid < kNC * kG) {
       const bf16* v_s = WIDE ? v + ((size_t)b * N + j0) * H : v;
       const int b_s = WIDE ? 0 : b;
       if (E <= 2) {
-        build_m1<2>(A, b0f, wef, ef_s, u, v_s, tid, nsrc, H, b_s, node0, nodes, nrows);
+        build_m1<2, kG, kNC>(A, b0f, wef, ef_s, u, v_s, tid, nsrc, H, b_s, node0, nodes, nrows);
       } else {
-        build_m1<kMaxE>(A, b0f, wef, ef_s, u, v_s, tid, nsrc, H, b_s, node0, nodes, nrows);
+        build_m1<kMaxE, kG, kNC>(A, b0f, wef, ef_s, u, v_s, tid, nsrc, H, b_s, node0, nodes, nrows);
       }
     }
     // m1 was written by ordinary stores; wgmma reads it through the async proxy.
@@ -587,9 +629,12 @@ __device__ __forceinline__ void edge_mlp_bf16_body(
           if (h == 0 || N1 == kNH)
             wgmma_m64n224k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
                              (kt | kk) != 0);
-          else
+          else if (N1 == kNarrow)
             wgmma_m64n200k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
                              (kt | kk) != 0);
+          else
+            wgmma_m64n32k16(acc, wgmma_desc(a_kt + kk * 32), wgmma_desc(b_kt + kk * 32),
+                            (kt | kk) != 0);
         }
         wgmma_commit();
         if (kt > 0) {
@@ -648,7 +693,7 @@ __device__ __forceinline__ void edge_mlp_bf16_body(
       // stmatrix x4 of 8-column groups (nt, nt + 1): matrices (rows of r0,
       // group nt), (rows of r0 + 8, nt), (r0, nt + 1), (r0 + 8, nt + 1); this
       // lane gives row (lane & 7) of matrix lane >> 3. Half 1's groups past
-      // N1 hold m1's zero columns, which the j-sum does not read.
+      // N1 lie past H, where the j-sum does not read.
       const int srow = wg * 64 + (warp & 3) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
       const uint32_t srow_base = smem_u32(A) + srow * 128;
       const int sswz = srow & 7;
@@ -805,23 +850,32 @@ cudaError_t launch_bf16(int B, int N, int H, int E, const void* u, const void* v
   return cudaGetLastError();
 }
 
-// One mode's launch: the wide kernel past kRows nodes, and half 1 as narrow
-// as H allows (the product, its epilogue and the gate skip the padded
-// columns, and gcl holds fewer registers through it).
+// Half 1's width for H: as narrow as H allows, so that the product, its
+// epilogue, the gate and the W1 ring skip the padded columns (and gcl holds
+// fewer registers through it). kSlim also sizes the m1 build to H <= 256.
+int half1_width(int H) {
+  return H > kNH && H <= kNH + kSlim ? kSlim : H <= kNH + kNarrow ? kNarrow : kNH;
+}
+
+template <bool GCL, bool WIDE, typename... Args>
+cudaError_t launch_width(int n1, Args... args) {
+  return n1 == kSlim ? launch_bf16<GCL, kSlim, WIDE>(args...)
+       : n1 == kNarrow ? launch_bf16<GCL, kNarrow, WIDE>(args...)
+       : launch_bf16<GCL, kNH, WIDE>(args...);
+}
+
+// One mode's launch: the wide kernel past kRows nodes, half 1 at
+// half1_width(H).
 template <bool GCL>
 cudaError_t launch_mode(int B, int N, int H, int E, const void* u, const void* v,
                         const void* ef, const void* em, const void* w_e, int ld_we,
                         const void* b0, const void* w1p, const void* b1,
                         const void* wh, const void* bh, float norm, float* out,
                         long long* prof, cudaStream_t s) {
-  const bool narrow = H <= kNH + kNarrow;
+  const int n1 = half1_width(H);
   if (N > kRows)
-    return narrow
-        ? launch_bf16<GCL, kNarrow, true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s)
-        : launch_bf16<GCL, kNH, true>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
-  return narrow
-      ? launch_bf16<GCL, kNarrow, false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s)
-      : launch_bf16<GCL, kNH, false>(B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
+    return launch_width<GCL, true>(n1, B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
+  return launch_width<GCL, false>(n1, B, N, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
 }
 
 bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
@@ -834,8 +888,13 @@ extern "C" {
 int mlcg_edge_mlp_max_nodes() { return kMaxNodes; }
 int mlcg_edge_mlp_max_hidden() { return kMaxHidden; }
 int mlcg_edge_mlp_max_edge_feats() { return kMaxE; }
-// Bytes of one packed W1 tile and clock slots per block of `prof`.
+// Bytes of one packed W1 tile of half 0 (and of a ring slot), the output
+// rows of a packed half-1 tile at hidden width H, and clock slots per block
+// of `prof`.
 int mlcg_edge_mlp_w1_tile_bytes() { return kWTileBytes; }
+int mlcg_edge_mlp_w1_half1_rows(int H) {
+  return half1_width(H) == kSlim ? kW1Rows1<kSlim> : kW1Rows1<kNH>;
+}
 int mlcg_edge_mlp_prof_slots() { return kProfSlots; }
 
 // mode: 0 = gcl, 1 = coord. All operands bfloat16.
@@ -843,9 +902,10 @@ int mlcg_edge_mlp_prof_slots() { return kProfSlots; }
 // w_e: (H, E) with row stride ld_we; b0, b1, wh: (H,); bh: (1,) or null;
 // u, v 8-byte aligned; H a multiple of 4, at most 448; N <= 192 (past 128
 // the wide kernel); E <= 4.
-// w1p: W1 in the packed form, 2 * ceil(H / 64) tiles of
-// mlcg_edge_mlp_w1_tile_bytes() bytes, 16-byte aligned (see pack_w1 in
-// ops/gcl_kernel.py).
+// w1p: W1 in the packed form, ceil(H / 64) tiles of
+// mlcg_edge_mlp_w1_tile_bytes() bytes and as many of
+// mlcg_edge_mlp_w1_half1_rows(H) rows of 128 bytes, 16-byte aligned (see
+// pack_w1 in ops/gcl_kernel.py).
 // out: float32, (B, N, H) for gcl, (B, N*N) for coord.
 // prof: null, or zeros, one block per SM times mlcg_edge_mlp_prof_slots()
 // int64: each block's (warpgroup, tile, mark) for its first 16 tiles, where

@@ -118,8 +118,10 @@ PACKS = 0
 #: cut in halves of _NH, input columns in K-tiles; a tile is _NH rows of 128
 #: bytes whose 16-byte chunks are XOR-swizzled with the row. A bf16 K-tile is
 #: _KT input columns; a float32 K-tile is _KT32 input columns, a row holding
-#: their 16 TF32 parts and then their 16 TF32 residuals.
-_NP, _NH, _KT, _KT32 = 448, 224, 64, 16
+#: their 16 TF32 parts and then their 16 TF32 residuals. Where _NH < H <=
+#: _NH + _SLIM the bf16 kernel runs half 1 _SLIM columns wide, and the bf16
+#: pack's half 1 has _SLIM rows (:func:`_half1_rows`).
+_NP, _NH, _KT, _KT32, _SLIM = 448, 224, 64, 16, 32
 #: Position p of a float32 K-tile row holds input column _K_PERM[p] of the
 #: K-tile: the wgmma A fragment's logical column 8 s + 4 h + t is what
 #: thread t of a quad builds as input column 4 t + 2 s + h, so that a thread's
@@ -208,11 +210,17 @@ def credit_launches(counts: Dict[str, int]) -> None:
             LAUNCHES[key] += n
 
 
-def _chunk_swizzle(device) -> torch.Tensor:
-    """(_NH, 8) index: position d of row r holds chunk d ^ (r % 8). The
+def _half1_rows(H: int) -> int:
+    """Output rows of half 1 of the bf16 pack of a W1 of width H: _SLIM
+    where _NH < H <= _NH + _SLIM (GEOM-Drugs' 256), else _NH."""
+    return _SLIM if _NH < H <= _NH + _SLIM else _NH
+
+
+def _chunk_swizzle(rows: int, device) -> torch.Tensor:
+    """(rows, 8) index: position d of row r holds chunk d ^ (r % 8). The
     permutation is its own inverse."""
-    rows = torch.arange(_NH, device=device)[:, None] % 8
-    return torch.arange(8, device=device)[None, :] ^ rows
+    r = torch.arange(rows, device=device)[:, None] % 8
+    return torch.arange(8, device=device)[None, :] ^ r
 
 
 def _k_perm(device) -> torch.Tensor:
@@ -233,14 +241,15 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
     """W1 (H, H), torch layout [out][in], in the form the kernel of its type
     reads, flat. Plain torch, on any device.
 
-    bfloat16: zero-padded to (_NP, HP) with HP = 64 ceil(H / 64), laid out
-    tile by tile in the order the kernel consumes them: (half, K-tile, row,
-    swizzled chunk, 8 values). float32: zero-padded to (_NP, 16 ceil(H /
+    bfloat16: zero-padded to (_NH + _half1_rows(H), HP) with HP = 64 ceil(H /
+    64), laid out tile by tile in the order the kernel consumes them: (half,
+    K-tile, row, swizzled chunk, 8 values), a tile of half 0 _NH rows, one
+    of half 1 _half1_rows(H). float32: zero-padded to (_NP, 16 ceil(H /
     16)) and split into hi = round_tf32(W1) and lo = round_tf32(W1 - hi);
     a tile row is the K-tile's 16 hi values and then its 16 lo values, both
     in the column order ``_K_PERM``, then (half, K-tile, row, swizzled
-    chunk, 4 values). Either way a tile is one contiguous block of _NH x 128
-    bytes.
+    chunk, 4 values). Either way a tile is one contiguous block of rows of
+    128 bytes.
     """
     H = w1.shape[0]
     if w1.shape != (H, H) or H > _NP:
@@ -255,14 +264,18 @@ def pack_w1(w1: torch.Tensor) -> torch.Tensor:
         perm = _k_perm(w1.device)
         rows = torch.stack((hi.view(_NP, nkt, _KT32)[..., perm],
                             lo.view(_NP, nkt, _KT32)[..., perm]), 2)
-        tiles = rows.view(2, _NH, nkt, 8, 4).permute(0, 2, 1, 3, 4)
+        rows, rows1 = rows.view(_NP, nkt, 8, 4), _NH
     else:
-        nkt = -(-H // _KT)
-        wp = w1.new_zeros(_NP, nkt * _KT)
+        nkt, rows1 = -(-H // _KT), _half1_rows(H)
+        wp = w1.new_zeros(_NH + rows1, nkt * _KT)
         wp[:H, :H] = w1
-        tiles = wp.view(2, _NH, nkt, 8, 8).permute(0, 2, 1, 3, 4)
-    idx = _chunk_swizzle(w1.device)[None, None, :, :, None].expand_as(tiles)
-    return torch.gather(tiles, 3, idx).contiguous().view(-1)
+        rows = wp.view(_NH + rows1, nkt, 8, 8)
+    halves = []
+    for half in rows.split([_NH, rows1]):      # (row, K-tile, chunk, values)
+        tiles = half.permute(1, 0, 2, 3)
+        idx = _chunk_swizzle(half.shape[0], w1.device)[None, :, :, None]
+        halves.append(torch.gather(tiles, 2, idx.expand_as(tiles)).reshape(-1))
+    return torch.cat(halves)
 
 
 def packed_w1(w1: torch.Tensor, backward: bool = False):
@@ -405,9 +418,13 @@ def _load() -> Dict[str, ctypes.CDLL]:
                    f32.mlcg_edge_mlp_f32_w1_tile_bytes):
             fn.restype = ci
             fn.argtypes = []
+        bf.mlcg_edge_mlp_w1_half1_rows.restype = ci
+        bf.mlcg_edge_mlp_w1_half1_rows.argtypes = [ci]
         if (bf.mlcg_edge_mlp_w1_tile_bytes() != _NH * 128
                 or f32.mlcg_edge_mlp_f32_w1_tile_bytes() != _NH * 128
-                or bf.mlcg_edge_mlp_max_hidden() != _NP):
+                or bf.mlcg_edge_mlp_max_hidden() != _NP
+                or any(bf.mlcg_edge_mlp_w1_half1_rows(h) != _half1_rows(h)
+                       for h in range(4, _NP + 1, 4))):
             raise RuntimeError("the built kernels and pack_w1 disagree on "
                                "the packed W1 layout")
         bwd = ctypes.CDLL(paths["edge_mlp_bwd_f32"])

@@ -8,6 +8,8 @@ Imports torch only, so it runs on the GPU machine as it is:
 Without a CUDA device every test skips.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -49,10 +51,13 @@ def _inputs(dtype, B=3, N=42, H=64, E=2, seed=0, n_min=15):
 # more than 48 and more than 64 nodes, and the most nodes a tile holds; the
 # sampling cells' node buckets at 64 samples (several tiles a block), 10
 # samples at N = 40 (one partly filled wave), an odd N past 64 (one node a
-# tile, the second m-tile partly filled) and a full tile of one node.
+# tile, the second m-tile partly filled) and a full tile of one node; the
+# drugs cell's requests at 48 and 96 atoms (H = 256: half 1 32 columns wide,
+# every consumer thread building m1).
 BF16_SHAPES = [(3, 42, 64), (3, 40, 420), (5, 24, 420), (2, 64, 420),
                (1, 100, 64), (64, 24, 420), (64, 32, 420), (64, 40, 420),
-               (10, 40, 420), (2, 65, 420), (1, 128, 420)]
+               (10, 40, 420), (2, 65, 420), (1, 128, 420), (16, 48, 256),
+               (16, 96, 256)]
 F32_SHAPES = [(3, 42, 64), (3, 40, 420), (2, 64, 420), (1, 100, 64),
               (2, 128, 420)]
 
@@ -148,6 +153,27 @@ def test_bf16_wide_launches_are_bit_equal(card, mode):
     second = gk.fused_edge_pass(**args, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("H,N1,sizes", [(256, 32, (96, 184)),
+                                         (420, 200, (40, 136))])
+def test_bf16_instantiation_is_chosen_by_width(card, H, N1, sizes):
+    """Which instantiation runs is decided by H alone: a device trace names
+    half 1's width N1 in both modes and both bodies (N <= 128 and wide),
+    32 at GEOM-Drugs' 256 and 200 at MLCG's 420."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for N in sizes:
+            args, _ = _inputs(torch.bfloat16, B=2, N=N, H=H, seed=N)
+            gk.fused_edge_pass(**args, mode="gcl")
+            gk.fused_edge_pass(**dict(args, em=None, bh=None), mode="coord")
+        torch.cuda.synchronize()
+    pattern = re.compile(r"edge_mlp_bf16(_wide)?_kernel<(true|false), (\d+)>")
+    found = {m.groups() for e in prof.key_averages()
+             for m in [pattern.search(e.key)] if m}
+    assert found == {(wide, gcl, str(N1)) for wide in (None, "_wide")
+                     for gcl in ("true", "false")}
 
 
 def test_f32_kernel_refuses_a_wide_graph(card):
