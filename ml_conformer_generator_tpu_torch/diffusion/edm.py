@@ -4,13 +4,16 @@ inpainting and the merge of fixed and generated fragments.
 
 Execution, the twin of the JAX sampler's one ``lax.scan`` under ``jit``:
 each trajectory is one function (:meth:`EDMSampler.trajectory`) of a table
-of its host scalars and a source of noise. On the card the whole
-trajectory, every reverse step, resample and fragment blend and the decode,
-is one captured CUDA graph (``utils/cuda_graph.py``), replayed once a
-request: the graph reads the scalars from a device table and the noise from
-a buffer that the request's draws fill first. On CPU tensors the same
-function runs as a Python loop over the table's floats, drawing as it goes
-(the plain version, which the CPU tests hold the graph's form against).
+of its host scalars and a source of noise. The table depends only on the
+schedule (gamma, the latent's type, the blend power and the level), so a
+sampler builds it once per schedule and keeps it (:meth:`EDMSampler.table`).
+On the card the whole trajectory, every reverse step, resample and fragment
+blend and the decode, is one captured CUDA graph (``utils/cuda_graph.py``),
+replayed once a request: the graph reads the scalars from the kept device
+table and the noise from a buffer that the request's draws fill first. On
+CPU tensors the same function runs as a Python loop over the table's
+floats, drawing as it goes (the plain version, which the CPU tests hold the
+graph's form against).
 All randomness comes from an explicit ``torch.Generator`` through
 :meth:`EDMSampler.sample_noise`, in the JAX sampler's call order (each
 trajectory's docstring gives it), in the loop and before a replay alike, so
@@ -39,6 +42,8 @@ port keeps this.
 from __future__ import annotations
 
 import functools
+import threading
+from collections import OrderedDict
 from typing import Optional, Tuple
 
 import torch
@@ -263,7 +268,8 @@ class EDMSampler:
 
     Each trajectory (:meth:`generate`, :meth:`inpaint`,
     :meth:`merge_fragments`) is one function, :meth:`trajectory`, of a
-    scalar table and a source of noise. On CPU tensors it runs as a loop
+    scalar table and a source of noise. Tables are built once per schedule
+    and kept (:meth:`table`). On CPU tensors a trajectory runs as a loop
     over the table's Python floats, drawing as it goes. On CUDA tensors the
     request's draws are made first, in the same order, into one tensor, and
     the whole trajectory, decode included, is one captured CUDA graph
@@ -280,11 +286,20 @@ class EDMSampler:
     #: at 64 samples and 46-150 MiB at 200, the most a request of the app
     #: takes; 16 generate graphs at 200 samples hold 1.6 GiB (PERF.md).
     GRAPHS_KEPT = 16
+    #: Scalar tables kept per sampler (:meth:`table`), least recently used
+    #: first out: one a schedule, blend power and level asked for. A T =
+    #: 1000 table is about 0.3 MB of Python floats and 32 KB on the card.
+    TABLES_KEPT = 16
 
     def __init__(self, dynamics, diff_cfg: DiffusionConfig):
         self.dynamics = dynamics
         self.diff_cfg = diff_cfg
         self._graphs = GraphCache(self.GRAPHS_KEPT)
+        #: Scalar tables built by :meth:`table` since the sampler was made:
+        #: one per schedule it was asked for, unless evicted and asked again.
+        self.table_builds = 0
+        self._tables: "OrderedDict[tuple, dict]" = OrderedDict()
+        self._tables_lock = threading.Lock()
 
     def sample_noise(self, generator, n_samples: int, n_nodes: int,
                      node_mask: torch.Tensor, dtype: torch.dtype):
@@ -392,7 +407,8 @@ class EDMSampler:
              dtype: torch.dtype = torch.float32):
         """A trajectory on ``node_mask``'s device: the loop on the CPU (or
         where ``_graphed`` is off), a captured graph on the card. Spans:
-        the host prelude (the table; on the card the draws and the graph's
+        the host prelude (the table's lookup, its build only on a
+        schedule's first request; on the card the draws and the graph's
         lookup), then the trajectory (the loop, or the replay's enqueue)."""
         with span("mlcg.sample.prelude"):
             if trajectory != "generate":
@@ -409,8 +425,8 @@ class EDMSampler:
             if node_mask.device.type != "cuda" or not self._graphed:
                 run = functools.partial(
                     self.trajectory,
-                    table=scalar_table(gamma, dtype, blend_power,
-                                       diffusion_level),
+                    table=self.table(gamma, dtype, blend_power,
+                                     diffusion_level),
                     noise=self._drawer(generator, node_mask, dtype),
                     **static, **tensors)
             else:
@@ -429,21 +445,57 @@ class EDMSampler:
         with span("mlcg.sample.trajectory"):
             return run()
 
+    def table(self, gamma: torch.Tensor, dtype: torch.dtype,
+              blend_power: int = 3, diffusion_level: int = 0,
+              device: Optional[torch.device] = None):
+        """:func:`scalar_table`'s rows, or with ``device`` their (T + 1, 8)
+        tensor of ``dtype`` there (made as ``torch.tensor(rows,
+        dtype=dtype)``, so each value has the bits the per-request copy
+        had), built on this sampler's first request of a schedule and kept.
+        The key is all the table depends on: gamma's contents (dtype, shape
+        and bytes, so a gamma replaced or edited in place builds anew),
+        ``dtype``, ``blend_power`` and the level the table reads,
+        ``min(diffusion_level, T)``. What it returns is shared: callers
+        only read it."""
+        T = gamma.shape[0] - 1
+        g = gamma.cpu().contiguous()
+        key = (g.dtype, tuple(g.shape), g.view(torch.uint8).numpy().tobytes(),
+               dtype, blend_power, min(diffusion_level, T))
+        with self._tables_lock:
+            entry = self._tables.get(key)
+            if entry is None:
+                entry = self._tables[key] = {None: scalar_table(
+                    gamma, dtype, blend_power, diffusion_level)}
+                self.table_builds += 1
+                while len(self._tables) > self.TABLES_KEPT:
+                    self._tables.popitem(last=False)
+            self._tables.move_to_end(key)
+        if device is not None and device not in entry:
+            # outside the lock: a copy to the card waits for the caller's
+            # stream
+            entry.setdefault(device, torch.tensor(entry[None], dtype=dtype,
+                                                  device=device))
+        return entry[device]
+
     def buffers(self, generator, gamma, *, trajectory, resample_steps,
                 diffusion_level, t_dtype, blend_power, dtype, **tensors):
         """What a captured trajectory reads besides ``tensors`` (the masks,
-        context and known fragment): its :func:`scalar_table` as a (T + 1,
-        8) tensor of the latent's ``dtype`` on their device, and the
-        request's noise, every draw made now through :meth:`sample_noise`
-        in the loop's order, one tensor. The generator ends where the loop
-        leaves it."""
+        context and known fragment): its scalar table as a (T + 1, 8)
+        tensor of the latent's ``dtype`` on their device, the one
+        :meth:`table` keeps (nothing writes into it: :func:`capture` clones
+        its inputs and a replay copies from them), and the request's noise,
+        every draw made now through :meth:`sample_noise` in the loop's
+        order, one tensor. The generator ends where the loop leaves it."""
         node_mask = tensors["node_mask"]
         draw = self._drawer(generator, node_mask, dtype)
         count = n_draws(trajectory, self.diff_cfg.timesteps, resample_steps,
                         diffusion_level)
-        table = torch.tensor(scalar_table(gamma, dtype, blend_power,
-                                          diffusion_level),
-                             dtype=dtype, device=node_mask.device)
+        table = self.table(gamma, dtype, blend_power, diffusion_level,
+                           node_mask.device)
+        if table.is_cuda:
+            # threads on other streams share the table: its memory is
+            # reused only after this stream's reads of it
+            table.record_stream(torch.cuda.current_stream(table.device))
         with span("mlcg.sample.draws"):
             draws = torch.stack([draw() for _ in range(count)])
         return dict(table=table, draws=draws, **tensors)

@@ -12,8 +12,10 @@ do). Here these forms run on CPU tensors and are held
 bit for bit against the eager loop (the path CPU tensors take), in float32
 and float64, and against the JAX package in float64 (JAX's draws replayed
 as the buffer, as ``tests/test_torch_edm.py`` replays them through
-``sample_noise``). The capture itself runs only on the card
-(``chip_smoke.py`` phase 20).
+``sample_noise``). The sampler's scalar tables are built once per
+schedule and kept (``EDMSampler.table``): the tests below hold a kept table
+to a fresh build and count the builds. The capture itself runs only on the
+card (``chip_smoke.py`` phase 20).
 """
 
 import jax
@@ -233,6 +235,163 @@ def test_buffer_form_matches_jax_f64(x64, trajectory, resample):
     assert np.isfinite(xt.numpy()).all()
     np.testing.assert_allclose(xt.numpy(), xj, rtol=1e-10, atol=1e-10)
     np.testing.assert_array_equal(ht.numpy(), hj)
+
+
+def _buffer_table(sampler, gamma, tensors, dtype=torch.float32,
+                  blend_power=3, level=0):
+    """The table tensor of a generate request's ``buffers``."""
+    return sampler.buffers(torch.Generator().manual_seed(0), gamma,
+                           trajectory="generate", resample_steps=0,
+                           diffusion_level=level, t_dtype=gamma.dtype,
+                           blend_power=blend_power, dtype=dtype,
+                           **tensors)["table"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_buffers_build_one_table_per_schedule(dtype):
+    """Two requests of one schedule read one table: built once, the same
+    tensor both times, equal to the table made from ``scalar_table``'s
+    rows as the per-request copy was."""
+    sampler, _, tensors, gamma, _ = _case("generate", 0, dtype)
+    first = _buffer_table(sampler, gamma, tensors, dtype)
+    second = _buffer_table(sampler, gamma, tensors, dtype)
+    assert sampler.table_builds == 1 and second is first
+    assert torch.equal(first, torch.tensor(scalar_table(gamma, dtype),
+                                           dtype=dtype))
+
+
+@pytest.mark.parametrize("change,builds", [
+    ("gamma_copy", 1), ("gamma_new", 2), ("gamma_in_place", 2),
+    ("blend_power", 2), ("level", 2), ("level_past_T", 1), ("dtype", 2)])
+def test_table_builds_again_only_for_another_schedule(change, builds):
+    """A second request builds its table again when anything the table
+    depends on differs: gamma's contents (a new tensor, or the same one
+    edited in place), the blend power, the level it reads, the latent's
+    type; an equal gamma in another tensor, or a level clamped to the same
+    T, reuses the first. Each table equals a fresh build of its inputs."""
+    sampler, _, tensors, gamma, _ = _case("generate", 0, torch.float32)
+    gamma = gamma.clone()
+    base = dict(dtype=torch.float32, blend_power=3, level=T)
+    _buffer_table(sampler, gamma, tensors, **base)
+    again = dict(base)
+    if change == "gamma_copy":
+        gamma = gamma.clone()
+    elif change == "gamma_new":
+        gamma = gamma + 0.5
+    elif change == "gamma_in_place":
+        gamma.add_(0.5)
+    elif change == "blend_power":
+        again["blend_power"] = 2
+    elif change == "level":
+        again["level"] = LEVEL
+    elif change == "level_past_T":
+        again["level"] = T + 3
+    else:
+        again["dtype"] = torch.float64
+    got = _buffer_table(sampler, gamma, tensors, **again)
+    assert sampler.table_builds == builds
+    assert torch.equal(got, torch.tensor(scalar_table(
+        gamma, again["dtype"], again["blend_power"], again["level"]),
+        dtype=again["dtype"]))
+
+
+@pytest.mark.parametrize("trajectory", ["generate", "merge"])
+def test_loop_with_a_kept_table_is_a_fresh_sampler_s(trajectory):
+    """On the loop (CPU tensors), two requests of a sampler that keeps its
+    table equal those of a fresh sampler started at the same generator
+    state, bit for bit; the generators end in the same state, and the
+    table was built once."""
+    dtype = torch.float32
+    resample = int(trajectory != "generate")
+    sampler, static, tensors, gamma, _ = _case(trajectory, resample, dtype)
+    gen = torch.Generator().manual_seed(13)
+    for _ in range(2):
+        fresh = EDMSampler(sampler.dynamics, sampler.diff_cfg)
+        fresh_gen = torch.Generator().set_state(gen.get_state())
+        want = _loop(fresh, fresh_gen, gamma, static, tensors, dtype)
+        got = _loop(sampler, gen, gamma, static, tensors, dtype)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(gen.get_state(), fresh_gen.get_state())
+    assert sampler.table_builds == 1
+
+
+def test_tables_kept_stay_at_the_bound():
+    """More schedules than the sampler keeps: it keeps ``TABLES_KEPT``,
+    the least recently used goes first, and only a schedule that went is
+    built again."""
+    sampler, _, tensors, gamma, _ = _case("generate", 0, torch.float32)
+    kept = sampler.TABLES_KEPT
+    for power in range(kept + 2):
+        _buffer_table(sampler, gamma, tensors, blend_power=power)
+        _buffer_table(sampler, gamma, tensors, blend_power=0)   # kept in use
+    assert len(sampler._tables) == kept
+    assert sampler.table_builds == kept + 2
+    for power in [0, *range(3, kept + 2)]:
+        _buffer_table(sampler, gamma, tensors, blend_power=power)
+    assert sampler.table_builds == kept + 2
+    _buffer_table(sampler, gamma, tensors, blend_power=1)          # went
+    assert sampler.table_builds == kept + 3
+    assert len(sampler._tables) == kept
+
+
+def test_kept_tables_under_threads(monkeypatch):
+    """Threads, more than the cores, ask one sampler for its schedules at
+    once, with the interpreter switching threads often: every table equals
+    a fresh build of its schedule; while the schedules fit in the sampler,
+    each is built once however many threads ask for it first; with more
+    than fit, ``table_builds`` counts every build made (a lost update would
+    fall short) and the sampler keeps at most ``TABLES_KEPT``."""
+    import os
+    import sys
+    import threading
+
+    from ml_conformer_generator_tpu_torch.diffusion import edm
+
+    sampler, _, _, gamma, _ = _case("generate", 0, torch.float32)
+    built = []
+
+    def counted(*args):
+        built.append(1)
+        return scalar_table(*args)
+
+    monkeypatch.setattr(edm, "scalar_table", counted)
+    want = {p: torch.tensor(scalar_table(gamma, torch.float32, p))
+            for p in range(sampler.TABLES_KEPT + 4)}
+    errors = []
+
+    def ask(worker, powers):
+        try:
+            for i in range(24):
+                p = powers[(worker * 7 + i * 5) % len(powers)]
+                device = torch.device("cpu") if i % 2 else None
+                got = sampler.table(gamma, torch.float32, p, device=device)
+                if not torch.equal(torch.as_tensor(got, dtype=torch.float32),
+                                   want[p]):
+                    errors.append((worker, p))
+        except Exception as e:     # a failure in a thread fails the test
+            errors.append(e)
+
+    def run(powers):
+        threads = [threading.Thread(target=ask, args=(w, powers))
+                   for w in range(2 * (os.cpu_count() or 4))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not any(t.is_alive() for t in threads)
+        assert errors == []
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        run(range(sampler.TABLES_KEPT))
+        assert sampler.table_builds == len(built) == sampler.TABLES_KEPT
+        run(range(len(want)))
+    finally:
+        sys.setswitchinterval(interval)
+    assert sampler.table_builds == len(built) > len(want)
+    assert len(sampler._tables) == sampler.TABLES_KEPT
 
 
 def test_sharded_sampler_keeps_the_loop():
