@@ -17,6 +17,14 @@ sm_90a):
         # width (phase 3's wide shapes, the drugs cell's N <= 128 shapes)
         # and EDM GEOM-Drugs' front end (4b); with --profile also the phase
         # clocks of both bodies
+    python3 chip_smoke.py --f32-wide [--compare-f32 DIR]   # only the
+        # smoke run's float32 phases at GEOM-Drugs' width: the forward and
+        # backward kernels' wide paths (128 < N <= 192) and the training
+        # cell's N <= 128 pads, held against the plain versions, bit-equal
+        # twice, timed beside the bound, and its train step at pad 184
+        # against the plain version; with --compare-f32 also the kernels'
+        # outputs at N <= 128 against the checkout in DIR (the parent's,
+        # say), bit for bit
 
 It builds the port's CUDA kernels from ``ml_conformer_generator_tpu_torch/
 csrc/`` (``edge_mlp.cu`` for bfloat16, ``edge_mlp_f32.cu`` for float32,
@@ -599,6 +607,226 @@ def wide_kernel_phase(torch, gk, card):
         out += kernel_phase(torch, gk, B, N, sizes, card, H=DRUGS_H,
                             dtypes=("bfloat16",))
     return out
+
+
+# The float32 kernels' wide paths (128 < N <= 192) at EDM GEOM-Drugs' width:
+# the training cell's largest pads at 16 and 64 molecules (sizes from 24 up:
+# graphs wholly inside the first slab too), a second slab of one source node,
+# and the most nodes the paths take; then the N <= 128 float32 kernels at
+# that width at the cell's smaller pads.
+F32_WIDE_SHAPES = [(16, 184, (24, 181)), (64, 184, (24, 181)),
+                   (64, 144, (24, 144)), (2, 129, (129, 129)),
+                   (1, 192, (192, 192))]
+F32_DRUGS_SHAPES = [(64, 96, (24, 96)), (64, 128, (24, 128))]
+
+
+def f32_wide_phase(torch, gk, card):
+    """The float32 forward and backward kernels' wide paths at each of
+    ``F32_WIDE_SHAPES`` (H = 256): one forward call a mode from zeroed
+    counts is one launch and one wide pass, a second call gives the same
+    bits; then ``kernel_phase`` (held against the plain version at the
+    f32 bar, timed beside the bound) and ``backward_kernel_phase`` (bars,
+    bit-equal twice, timed beside the bound). Then both at
+    ``F32_DRUGS_SHAPES`` on the N <= 128 kernels. Returns the records."""
+    out = []
+    for B, N, sizes in F32_WIDE_SHAPES:
+        a, _ = edge_inputs(torch, B, N, DRUGS_H, torch.float32, sizes,
+                           seed=B * N)
+        coord = dict(a, em=None, bh=None)
+        gk.reset_launch_counts()
+        first = (gk.fused_edge_pass(**a, mode="gcl"),
+                 gk.fused_edge_pass(**coord, mode="coord"))
+        torch.cuda.synchronize()
+        counts = {"launches": dict(gk.LAUNCHES), "passes": dict(gk.PASSES)}
+        again = (gk.fused_edge_pass(**a, mode="gcl"),
+                 gk.fused_edge_pass(**coord, mode="coord"))
+        torch.cuda.synchronize()
+        equal = all(torch.equal(x, y) for x, y in zip(first, again))
+        log(f"[f32-wide] ({B}, {N}, {DRUGS_H}) one call a mode: "
+            f"{json.dumps(counts)}; a second call bit-equal: {equal}")
+        check(counts == {"launches": launch_counts(1, 1),
+                         "passes": {"gcl": 0, "coord": 0, "gcl_wide": 1,
+                                    "coord_wide": 1}},
+              f"a wide f32 call is not one launch and one wide pass: "
+              f"{counts}")
+        check(equal, f"two wide f32 calls differ at ({B}, {N})")
+        del first, again
+        out += kernel_phase(torch, gk, B, N, sizes, card, H=DRUGS_H,
+                            dtypes=("float32",))
+        out += backward_kernel_phase(torch, gk, B, N, sizes, H=DRUGS_H)
+        torch.cuda.empty_cache()
+    for B, N, sizes in F32_DRUGS_SHAPES:
+        out += kernel_phase(torch, gk, B, N, sizes, card, H=DRUGS_H,
+                            dtypes=("float32",))
+        out += backward_kernel_phase(torch, gk, B, N, sizes, H=DRUGS_H)
+        torch.cuda.empty_cache()
+    return out
+
+
+def drugs_train_phase(torch, gk, B=64, largest=181, seed=24):
+    """EDM GEOM-Drugs' train step at its published widths (float32, EGNN
+    256 x 4) on one all-atom batch of ``B`` molecules, the largest of
+    ``largest`` atoms and the others of 24-64 (padded to 184: every edge
+    pass on the float32 wide kernels): two steps through the kernels, the
+    first capturing the step's graph (its warm-up eager), the second
+    replaying it, each from zeroed counts with one step's launches and wide
+    passes; against the same two steps through the plain version (same
+    weights, same draws, the loop), by each step's loss and by the worst
+    parameter's gradient, its gap over the larger of its norm and the
+    median parameter's (as the training cells compare). The GCLs'
+    residual heads and the feature head damped as ``drugs_phase`` damps
+    them. Returns the record."""
+    import copy
+
+    import numpy as np
+
+    from ml_conformer_generator_tpu_torch.chem.mol import Molecule
+    from ml_conformer_generator_tpu_torch.config import edm_geom_drugs
+    from ml_conformer_generator_tpu_torch.diffusion.schedule import \
+        gamma_schedule
+    from ml_conformer_generator_tpu_torch.models.egnn import EGNNDynamics
+    from ml_conformer_generator_tpu_torch.parallel import make_mesh
+    from ml_conformer_generator_tpu_torch.training import (AllAtomDataset,
+                                                           init_train_state,
+                                                           make_optimizer,
+                                                           make_train_step)
+
+    cfg, diff = edm_geom_drugs("float32")
+    rng = np.random.default_rng(seed)
+    sizes = [largest] + rng.integers(24, 65, B - 1).tolist()
+
+    def chain(n):
+        step = rng.standard_normal((n, 3))
+        step *= rng.uniform(1.0, 1.5, (n, 1)) / np.linalg.norm(
+            step, axis=1, keepdims=True)
+        return np.cumsum(step, axis=0)
+
+    ds = AllAtomDataset([Molecule(rng.choice([1, 6, 7, 8], size=n),
+                                  chain(n), []) for n in sizes])
+    batch = ds.featurize(list(range(B)))
+    N = batch["x"].shape[1]
+    gamma = torch.from_numpy(gamma_schedule(diff.timesteps,
+                                            diff.noise_precision,
+                                            diff.schedule_power))
+    model_k = EGNNDynamics(cfg, torch.Generator().manual_seed(seed)).cuda()
+    with torch.no_grad():
+        for name, p in model_k.named_parameters():
+            if name.endswith(("node_mlp.2.weight", "embedding_out.weight")):
+                p.mul_(1e-3)
+    model_p = copy.deepcopy(model_k)
+    routes = {"kernel": model_k, "plain": model_p}
+    states = {r: init_train_state(m, make_optimizer(lr=1e-4))
+              for r, m in routes.items()}
+    steps = {r: make_train_step(make_mesh(device="cuda"), cfg, diff,
+                                batch_shapes=ds.batch_shapes)
+             for r in routes}
+    gens = {r: torch.Generator(device="cuda").manual_seed(seed)
+            for r in routes}
+    blocks, gcls = cfg.n_blocks, cfg.n_blocks * cfg.inv_sublayers
+    # remat: every forward pass twice (the forward and its recompute)
+    want = launch_counts(2 * gcls, 2 * blocks, gcls, blocks)
+    rec = {"phase": "drugs_train_step", "B": B, "N": N, "largest": largest,
+           "width": cfg.hidden_nf, "blocks": blocks, "dtype": "float32",
+           "steps": []}
+    for k in range(2):
+        gk.reset_launch_counts()
+        mk = steps["kernel"](model_k, states["kernel"], gens["kernel"],
+                             batch, gamma)
+        torch.cuda.synchronize()
+        counts = {"launches": dict(gk.LAUNCHES), "passes": dict(gk.PASSES)}
+        with plain_edge_pass(gk), train_loop():
+            mp = steps["plain"](model_p, states["plain"], gens["plain"],
+                                batch, gamma)
+        torch.cuda.synchronize()
+        check(gk.LAUNCHES == counts["launches"],
+              "the plain drugs step launched a kernel")
+        norms = {n: p.grad.double().norm().item()
+                 for n, p in model_p.named_parameters()}
+        med = float(np.median(list(norms.values())))
+        gaps = {n: ((pk.grad.double() - pp.grad.double()).norm().item()
+                    / max(norms[n], med))
+                for (n, pk), pp in zip(model_k.named_parameters(),
+                                       model_p.parameters())}
+        worst = max(gaps, key=gaps.get)
+        loss_k, loss_p = float(mk["loss"]), float(mp["loss"])
+        step_rec = {"route": ("capture", "replay")[k], **counts,
+                    "loss_kernel": loss_k, "loss_plain": loss_p,
+                    "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+                    "grad_gap_max": gaps[worst], "grad_gap_worst": worst}
+        rec["steps"].append(step_rec)
+        log(f"[drugs-train] {json.dumps(step_rec)}")
+        check(counts == {"launches": want,
+                         "passes": {"gcl": 0, "coord": 0,
+                                    "gcl_wide": 2 * gcls,
+                                    "coord_wide": 2 * blocks}},
+              f"a drugs step's counts {counts}, expected launches {want}, "
+              f"every forward pass wide")
+        check(step_rec["loss_rel_diff"] <= 1e-5,
+              f"kernel and plain drugs losses: {step_rec}")
+        check(gaps[worst] <= 1e-4, f"kernel and plain drugs gradients: "
+              f"{step_rec}")
+    check(steps["kernel"].graphs.captures == 1,
+          "the second drugs step of the shape captured again")
+    del routes, states, steps, model_k, model_p
+    torch.cuda.empty_cache()
+    return rec
+
+
+# The float32 kernels' outputs at N <= 128 (forward and backward, both
+# modes) in one checkout, digested, for ``--compare-f32``: MLCG's training
+# and sampling shapes and the drugs training cell's pad 96. Plain torch
+# inputs from a seed; the checkout is the working directory.
+F32_DIGEST_SHAPES = [(64, 32, 420), (64, 39, 420), (16, 96, 256)]
+_F32_DIGEST_RUN = r"""
+import hashlib, json, sys, torch
+sys.path.insert(0, ".")
+from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
+torch.backends.cuda.matmul.allow_tf32 = False
+out = {}
+for B, N, H in json.loads(sys.argv[1]):
+    g = torch.Generator().manual_seed(B * N + H)
+    r = lambda *s, sc=1.0: (torch.randn(*s, generator=g) * sc).cuda()
+    n = torch.randint(N // 2, N + 1, (B,), generator=g)
+    nm = (torch.arange(N)[None] < n[:, None]).float()
+    em = (nm[:, :, None] * nm[:, None, :] * (1 - torch.eye(N))).reshape(B, N * N, 1).cuda()
+    w0 = r(H, 2 * H + 2, sc=H ** -0.5)
+    a = dict(u=r(B, N, H), v=r(B, N, H), ef=r(B, N * N, 2), em=em, w_e=w0[:, 2 * H:],
+             b0=r(H, sc=0.1), w1=r(H, H, sc=H ** -0.5), b1=r(H, sc=0.1),
+             wh=r(H, sc=H ** -0.5), bh=r(1))
+    for mode in ("gcl", "coord"):
+        args = a if mode == "gcl" else dict(a, em=None, bh=None)
+        up = r(B, N, H) if mode == "gcl" else r(B, N * N, 1)
+        res = [gk.fused_edge_pass(**args, mode=mode)]
+        res += [x for x in gk.fused_edge_pass_backward(**args, g=up, mode=mode) if x is not None]
+        torch.cuda.synchronize()
+        h = hashlib.sha256()
+        for x in res:
+            h.update(x.contiguous().cpu().numpy().tobytes())
+        out[f"{mode} {B} {N} {H}"] = h.hexdigest()[:16]
+print("F32_DIGEST " + json.dumps(out), flush=True)
+"""
+
+
+def compare_f32(other):
+    """The float32 kernels' outputs at ``F32_DIGEST_SHAPES`` in the checkout
+    at ``other`` and in this one: every digest must be equal."""
+    found = {}
+    for name, root in (("other", other), ("this", ROOT)):
+        p = subprocess.run([sys.executable, "-c", _F32_DIGEST_RUN,
+                            json.dumps(F32_DIGEST_SHAPES)], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        line = [l for l in p.stdout.splitlines()
+                if l.startswith("F32_DIGEST ")]
+        check(p.returncode == 0 and line,
+              f"{name} {root} failed:\n{(p.stdout + p.stderr)[-3000:]}")
+        found[name] = json.loads(line[0][len("F32_DIGEST "):])
+        log(f"[f32-compare] {name}: {json.dumps(found[name])}")
+    check(found["other"] == found["this"],
+          "the float32 kernels' outputs at N <= 128 differ from the other "
+          "checkout's")
+    log("[f32-compare] bit-equal at N <= 128: "
+        f"{sorted(found['this'])}")
+    return found
 
 
 def drugs_phase(torch, gk, n_samples=16, n_atoms=181):
@@ -4728,6 +4956,19 @@ def main() -> int:
     from ml_conformer_generator_tpu_torch.utils.masks import (pad_to_bucket,
                                                               prepare_masks)
 
+    if "--f32-wide" in sys.argv[1:]:
+        log(smi)
+        if "--compare-f32" in sys.argv[1:]:
+            compare_f32(os.path.abspath(
+                sys.argv[sys.argv.index("--compare-f32") + 1]))
+        f32_wide_phase(torch, gk, card)
+        drugs_train_phase(torch, gk)
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return 0
+
     if "--drugs" in sys.argv[1:]:
         from ml_conformer_generator_tpu_torch.ops import gcl_kernel as gk
 
@@ -4796,6 +5037,10 @@ def main() -> int:
     log(f"[kernel] the bf16 wide path (128 < N <= 192) at H={DRUGS_H}: "
         f"{WIDE_SHAPES}")
     wide = wide_kernel_phase(torch, gk, card)
+    log(f"[kernel] the float32 wide paths (128 < N <= 192) at H={DRUGS_H}: "
+        f"{F32_WIDE_SHAPES}, then the N <= 128 float32 kernels at "
+        f"{F32_DRUGS_SHAPES}")
+    f32_wide = f32_wide_phase(torch, gk, card)
     for dtype in (torch.bfloat16, torch.float32):
         pack_cache_phase(torch, gk, dtype)
 
@@ -4992,6 +5237,9 @@ def main() -> int:
         backward_phase_clocks(torch, gk, TRAIN_B, TRAIN_N, (15, 39))
     corpus = training_corpus(torch, reference)
     train_rec = train_step_phase(torch, gk, corpus)
+    log("[drugs-train] EDM GEOM-Drugs' train step at pad 184 (the float32 "
+        "wide kernels), captured and replayed, against the plain version")
+    drugs_train = drugs_train_phase(torch, gk)
     train_loop_phase(torch, gk, corpus, reference, workdir)
     bond_training_phase(torch, corpus)
     train_launches = train_rec["launches"]
@@ -5076,6 +5324,30 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": r["library_ms"],
             "dtype": "bfloat16", "shape": [r["B"], r["N"], r["H"]]})
+    # The float32 wide paths at the drugs training cell's pad-184 shape,
+    # launches those of the replayed drugs step (phase 13).
+    replayed = drugs_train["steps"][-1]
+    for r in f32_wide:
+        if (r["B"], r["N"]) != (drugs_train["B"], drugs_train["N"]):
+            continue
+        mode, back = r["mode"], "weight_sums_max_rel_err" in r
+        if back:
+            bound_ms, bound_by = r["bound_ms"], r["bound_by"]
+        else:
+            bound_ms, bound_by = edge_pass_bound(r["B"], r["N"], r["H"], 2,
+                                                 "float32", mode)
+        kernels.append({
+            "name": f"edge_mlp{'_bwd' if back else ''}_f32_wide_{mode}",
+            "route": "cuda", "source": BWD_SOURCE if back else F32_SOURCE,
+            "replaces": BWD_REPLACES if back else TPU_KERNEL,
+            "launches": (replayed["launches"][f"{mode}_bwd"] if back
+                         else replayed["passes"][f"{mode}_wide"]),
+            "max_abs_err": r["max_abs_err"],
+            "atol": BWD_ATOL if back else r["atol"],
+            "rtol": BWD_RTOL if back else r["rtol"], "ms": r["kernel_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": r["library_ms"],
+            "dtype": "float32", "shape": [r["B"], r["N"], r["H"]]})
     for r in bwd:
         if (r["B"], r["N"]) != (TRAIN_B, TRAIN_N):
             continue

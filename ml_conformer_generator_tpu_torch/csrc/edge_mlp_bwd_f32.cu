@@ -93,6 +93,24 @@
 // rows in order and a fixed shuffle tree, the wrapper's sums over fixed
 // shapes), so two calls give equal results bit for bit.
 //
+// Graphs of 128 < N <= 192 nodes on the square edge set take the wide
+// instantiation, edge_mlp_bwd_f32_wide_kernel (a name of its own in a device
+// trace), with the forward's wide packing (edge_mlp_f32.cu): a work item of
+// TI = min(8, 128 / (N - 128)) target nodes of one graph, a tile for each
+// node's source nodes 0..127, then one for the tails of all TI nodes. The
+// sums that span a node's two tiles, du and sum_j dpre0 e, are carried in
+// their own rows of device memory: a node's first tile writes its part, the
+// item's tail tile reads it back (ld.global.cg, after the consumers' barrier)
+// and adds on, so each runs in the order j = 0, 1, ..., N - 1. The dv
+// partials are the item's (B, items a graph, N, H): each first tile adds its
+// node's row into the item's partial of source nodes 0..127, which the same
+// thread wrote at the item's first tile, and the tail tile writes those of
+// source nodes 128..N-1. Neither fits the shared memory the ring and the
+// stash leave (the dv partial is 128 H floats an item). s0 and dpre1 are
+// written in the item's row order (its tiles one after another), which
+// [dW1 | db1] = dpre1^T [s0 | 1] does not see; every per-edge output (de,
+// dhead) is at its edge.
+//
 // Padding is exact: padded rows and columns of both packs are zero; rows past
 // a tile's last edge are built as zeros and written nowhere.
 //
@@ -110,6 +128,8 @@ constexpr int kMaxHidden = 448;    // H <= 448
 constexpr int kMaxDevices = 64;    // devices whose attributes are cached
 
 constexpr int kRows = 128;                 // edge rows per block tile
+constexpr int kMaxNodes = kRows + 64;      // wide: a node's tail fits one m-tile
+constexpr int kMaxPack = 8;                // wide: target nodes whose tails share a tile
 constexpr int kNP = kMaxHidden;            // padded output width
 constexpr int kNH = kNP / 2;               // columns per wgmma (one half)
 constexpr int kNT = kNH / 8;               // 8-column accumulator tiles per half
@@ -457,15 +477,17 @@ __device__ __forceinline__ void stash_acc(const float (&acc)[4 * kNT], float* st
 // h, h 224 + 4 (lane + 32 k)) has dhead = g and a = 0, and takes each half
 // from the stash in turn. dhead goes to dhead[edge]; each lane adds its
 // columns' sums of dhead m over the warp's rows into the warp's row of part.
+// WIDE: rows r of dpre1 lie at e0 + r; the edge of row r is (node r / NL,
+// source node j0 + r % NL) of N (NL: the tile's source nodes a node).
 constexpr int kHeadRows = 2;
-template <bool GCL, int KCH>
+template <bool GCL, int KCH, bool WIDE>
 __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, const float* whf,
                                           const float* __restrict__ g,
                                           const float* __restrict__ em,
                                           const float* __restrict__ bh, float norm,
                                           size_t node0, size_t e0, int nrows, int NL, int H,
                                           int h, float* __restrict__ dhead, float* part,
-                                          int warp, int lane) {
+                                          int warp, int lane, int N, int j0) {
   static_assert(GCL ? KCH == 4 : KCH == 2, "gcl takes all columns, coord a half");
   float* pw = part + ((size_t)blockIdx.x * kWarps + warp) * kNP;   // this warp's dwh sums
   const int col0 = KCH == 2 ? h * kNH : 0;
@@ -509,6 +531,7 @@ __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, cons
       const int r = rb + kWarps * rr;
       if (r >= nrows) break;   // the same for the whole warp
       const size_t e = e0 + r;
+      const size_t ed = WIDE ? (node0 + r / NL) * N + j0 + r % NL : e;   // its edge
       float sg[KCH][4];
 #pragma unroll
       for (int k = 0; k < KCH; ++k)
@@ -530,7 +553,7 @@ __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, cons
           hd += __shfl_xor_sync(0xffffffffu, hd, o);
           gp += __shfl_xor_sync(0xffffffffu, gp, o);
         }
-        const float scale = __ldg(em + e) / norm;
+        const float scale = __ldg(em + ed) / norm;
         // An IEEE division here, not __fdividef: where the gate saturates,
         // 1 - gate is a few ulp of 1, so the gate must be rounded correctly
         // (as the plain version's sigmoid is) for dhead to keep its digits.
@@ -538,7 +561,7 @@ __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, cons
         a = scale * gate;
         dh = gp * scale * gate * (1.0f - gate);
       } else {
-        dh = __ldg(g + e);
+        dh = __ldg(g + ed);
       }
 #pragma unroll
       for (int k = 0; k < KCH; ++k) {
@@ -553,7 +576,7 @@ __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, cons
         }
         *reinterpret_cast<float4*>(dpre1 + e * H + col) = make_float4(d[0], d[1], d[2], d[3]);
       }
-      if (lane == 0 && h == 0) dhead[e] = dh;
+      if (lane == 0 && h == 0) dhead[ed] = dh;
     }
   }
 #pragma unroll
@@ -574,15 +597,17 @@ __device__ __forceinline__ void head_pass(const float* stash, float* dpre1, cons
 // pass adding the column of ones); each row's share of de = dpre0 . W_e is a
 // warp sum, kept in des after the first half and added to it and written
 // after the second.
+// WIDE: as head_pass (vrow0 the row of v of the tile's first source node).
 constexpr int kLayerRows = 2;
-template <int EE>
+template <int EE, bool WIDE>
 __device__ __forceinline__ void first_layer_pass(float* stash, const float* __restrict__ u,
                                                  const float* __restrict__ v, const float* b0f,
                                                  const float* wef, const float* efs, float* des,
                                                  float* __restrict__ de,
                                                  float* __restrict__ s0, int h, size_t node0,
                                                  size_t vrow0, size_t e0, int nrows, int NL,
-                                                 int H, int E, int warp, int lane) {
+                                                 int H, int E, int warp, int lane, int N,
+                                                 int j0) {
   // This lane's columns of the half (4 (lane + 32 k), k < 2) and their b0, W_e.
   float4 bb[2], we[2][EE];
   bool on[2];
@@ -664,7 +689,8 @@ __device__ __forceinline__ void first_layer_pass(float* stash, const float* __re
         for (int o = 16; o > 0; o >>= 1) dq[q] += __shfl_xor_sync(0xffffffffu, dq[q], o);
         if (lane == 0 && q < E) {
           if (h == 0) des[r * kMaxE + q] = dq[q];
-          else de[(e0 + r) * E + q] = des[r * kMaxE + q] + dq[q];
+          else de[(WIDE ? (node0 + r / NL) * N + j0 + r % NL : e0 + r) * E + q] =
+              des[r * kMaxE + q] + dq[q];
         }
       }
     }
@@ -721,25 +747,96 @@ __device__ __forceinline__ void column_sums(const float* stash, const float* efs
   }
 }
 
+// column_sums for the wide kernel's tiles (nsrc source nodes a node, from
+// source node j0; dvp_rows: the item's dv partial at source node j0). A
+// node's first tile writes its du and dwe parts, the tail tile reads them
+// back and adds on (other threads wrote them, before the consumers' barrier
+// at the end of the first tile's column sums). dv: the tile's sums over its
+// target nodes, added to the partial's rows (`fresh`: written, the item's
+// first tile and its tail); each column of a source node is the same
+// thread's in all first tiles of an item.
+__device__ __forceinline__ void column_sums_wide(const float* stash, const float* efs, int h,
+                                                 int nodes, int nsrc, int H, int E,
+                                                 size_t node0, float* __restrict__ du,
+                                                 float* __restrict__ dwe,
+                                                 float* __restrict__ dvp_rows, bool tail,
+                                                 bool fresh, int tid) {
+  for (int item = tid; item < (nodes + nsrc) * kQuads; item += kConsumers) {
+    const int w = item / kQuads;
+    const int c = 4 * (item - w * kQuads);
+    const int col = h * kNH + c;
+    if (col >= H) continue;   // H is a multiple of 4
+    float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (w < nodes) {
+      float* du_at = du + (node0 + w) * H + col;
+      float4 se[kMaxE];
+#pragma unroll
+      for (int q = 0; q < kMaxE; ++q) se[q] = s;
+      if (tail) {
+        s = __ldcg(reinterpret_cast<const float4*>(du_at));
+#pragma unroll
+        for (int q = 0; q < kMaxE; ++q)
+          if (q < E) se[q] = __ldcg(reinterpret_cast<const float4*>(dwe + ((node0 + w) * E + q) * H + col));
+      }
+#pragma unroll 4
+      for (int j = 0; j < nsrc; ++j) {
+        const int r = w * nsrc + j;
+        const float4 x = *reinterpret_cast<const float4*>(stash + r * kLdS + c);
+        s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+#pragma unroll
+        for (int q = 0; q < kMaxE; ++q) {
+          if (q < E) {
+            const float e = efs[r * kMaxE + q];
+            se[q].x = fmaf(x.x, e, se[q].x);
+            se[q].y = fmaf(x.y, e, se[q].y);
+            se[q].z = fmaf(x.z, e, se[q].z);
+            se[q].w = fmaf(x.w, e, se[q].w);
+          }
+        }
+      }
+      __stcg(reinterpret_cast<float4*>(du_at), s);
+#pragma unroll
+      for (int q = 0; q < kMaxE; ++q)
+        if (q < E) __stcg(reinterpret_cast<float4*>(dwe + ((node0 + w) * E + q) * H + col), se[q]);
+    } else {
+      const int j = w - nodes;
+      float4* at = reinterpret_cast<float4*>(dvp_rows + (size_t)j * H + col);
+      if (!fresh) s = __ldcg(at);
+#pragma unroll 4
+      for (int ti = 0; ti < nodes; ++ti) {
+        const float4 x = *reinterpret_cast<const float4*>(stash + (ti * nsrc + j) * kLdS + c);
+        s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+      }
+      __stcg(at, s);
+    }
+  }
+}
+
 // N target nodes, NL source nodes a graph. TI: whole target nodes per
 // 128-row tile. tpg: tiles per graph; a tile holds nodes of one graph. nkt:
 // K-tiles of W1 (ceil(H / 16)). w1p, w1tp: pack_w1(W1) and pack_w1(W1^T), 2 * nkt tiles of kWTileBytes
 // each. prof: null, or kProfSlots clock sums per block (see
-// mlcg_edge_mlp_bwd_f32).
-template <bool GCL, int EE>
-__global__ void __launch_bounds__(kThreads, 1)
-edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int ntiles,
-                        const float* __restrict__ u, const float* __restrict__ v,
-                        const float* __restrict__ ef, const float* __restrict__ em,
-                        const float* __restrict__ w_e, int ld_we,
-                        const float* __restrict__ b0, const float* __restrict__ w1p,
-                        const float* __restrict__ w1tp, const float* __restrict__ b1,
-                        const float* __restrict__ wh, const float* __restrict__ bh,
-                        float norm, const float* __restrict__ g, float* __restrict__ s0,
-                        float* dpre1, float* __restrict__ du, float* __restrict__ dvp,
-                        float* __restrict__ de, float* __restrict__ dwe,
-                        float* __restrict__ dhead, float* __restrict__ part,
-                        long long* __restrict__ prof) {
+// mlcg_edge_mlp_bwd_f32). WIDE (128 < N <= kMaxNodes, NL = N): a tile of tpg
+// is a work item of TI nodes, TI + 1 tiles of rows (see the notes at the top).
+#define MLCG_BWD_PARAMS                                                             \
+    int N, int NL, int H, int E, int nkt, int TI, int tpg, int ntiles,             \
+    const float* __restrict__ u, const float* __restrict__ v,                      \
+    const float* __restrict__ ef, const float* __restrict__ em,                    \
+    const float* __restrict__ w_e, int ld_we,                                      \
+    const float* __restrict__ b0, const float* __restrict__ w1p,                   \
+    const float* __restrict__ w1tp, const float* __restrict__ b1,                  \
+    const float* __restrict__ wh, const float* __restrict__ bh,                    \
+    float norm, const float* __restrict__ g, float* __restrict__ s0,               \
+    float* dpre1, float* __restrict__ du, float* __restrict__ dvp,                 \
+    float* __restrict__ de, float* __restrict__ dwe,                               \
+    float* __restrict__ dhead, float* __restrict__ part,                           \
+    long long* __restrict__ prof
+#define MLCG_BWD_ARGS                                                               \
+    N, NL, H, E, nkt, TI, tpg, ntiles, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1, \
+    wh, bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part, prof
+
+template <bool GCL, int EE, bool WIDE>
+__device__ __forceinline__ void edge_mlp_bwd_f32_body(MLCG_BWD_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned (the swizzle is a function of the address).
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -783,15 +880,19 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
       uint32_t ph = 0;
       const unsigned char* w1b = reinterpret_cast<const unsigned char*>(w1p);
       const unsigned char* w1tb = reinterpret_cast<const unsigned char*>(w1tp);
-      for (int t = 0; t < my_tiles; ++t) {
-        for (int p = 0; p < 2; ++p) {
-          const unsigned char* src = p == 0 ? w1b : w1tb;
-          for (int w = 0; w < 2 * nkt; ++w) {
-            mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
-            mbar_expect_tx(full + 8 * s, kWTileBytes);
-            bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes, kWTileBytes,
-                      full + 8 * s);
-            if (++s == kRing) { s = 0; ph ^= 1; }
+      for (int t = 0, tile = blockIdx.x; t < my_tiles; ++t, tile += gridDim.x) {
+        // WIDE: a tile for each of the item's nodes and one for their tails
+        const int rounds = WIDE ? min(TI, N - (tile % tpg) * TI) + 1 : 1;
+        for (int round = 0; round < rounds; ++round) {
+          for (int p = 0; p < 2; ++p) {
+            const unsigned char* src = p == 0 ? w1b : w1tb;
+            for (int w = 0; w < 2 * nkt; ++w) {
+              mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
+              mbar_expect_tx(full + 8 * s, kWTileBytes);
+              bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes, kWTileBytes,
+                        full + 8 * s);
+              if (++s == kRing) { s = 0; ph ^= 1; }
+            }
           }
         }
       }
@@ -823,10 +924,24 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
     const int b = tile / tpg;                     // the tile's graph
     const int tig = tile - b * tpg;               // its place among the graph's tiles
     const int i0 = tig * TI;                      // its first target node
-    const int nodes = min(TI, N - i0);
-    const size_t node0 = (size_t)b * N + i0;
-    const int nrows = nodes * NL;                 // real rows of this tile
-    const size_t e0 = node0 * NL;                 // first edge of this tile
+    const int item_nodes = min(TI, N - i0);
+#pragma unroll 1
+    for (int sub = 0; sub < (WIDE ? item_nodes + 1 : 1); ++sub) {
+    // WIDE: tile sub < item_nodes holds node i0 + sub's source nodes 0..127;
+    // the last, tail, every node's source nodes 128..N-1.
+    const bool tail = WIDE && sub == item_nodes;
+    const int nodes = WIDE && !tail ? 1 : item_nodes;
+    const size_t node0 = (size_t)b * N + i0 + (WIDE && !tail ? sub : 0);
+    const int j0 = tail ? kRows : 0;              // the tile's first source node
+    const int nsrc = WIDE ? (tail ? N - kRows : kRows) : NL;
+    const int nrows = nodes * nsrc;               // real rows of this tile
+    // The tile's first row of s0 and dpre1: its first edge (not WIDE), or
+    // after the item's earlier tiles.
+    const size_t e0 = WIDE ? ((size_t)b * N + i0) * N + (size_t)sub * kRows : node0 * NL;
+    // The edge of row r (WIDE: node r / nsrc, source node j0 + r % nsrc).
+    auto edge = [&](int r) -> size_t {
+      return WIDE ? (node0 + r / nsrc) * N + j0 + r % nsrc : e0 + r;
+    };
     if (prof != nullptr && tid == 0) *t_prev = clock64();
 
     // 0. This thread's rows: their u and v rows and edge scalars (also into
@@ -836,13 +951,13 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
       rw.ok[i] = r < nrows;
-      const int ti = rw.ok[i] ? r / NL : 0;
-      const int j = rw.ok[i] ? r - ti * NL : 0;
+      const int ti = rw.ok[i] ? r / nsrc : 0;
+      const int j = rw.ok[i] ? r - ti * nsrc : 0;
       rw.u[i] = u + (node0 + ti) * H;
-      rw.v[i] = v + ((size_t)b * NL + j) * H;
+      rw.v[i] = v + ((size_t)b * NL + j0 + j) * H;
 #pragma unroll
       for (int q = 0; q < EE; ++q)
-        rw.f[i][q] = (rw.ok[i] && q < E) ? __ldg(ef + (e0 + r) * E + q) : 0.0f;
+        rw.f[i][q] = (rw.ok[i] && q < E) ? __ldg(ef + edge(r) * E + q) : 0.0f;
       if (t4 == 0) {
 #pragma unroll
         for (int q = 0; q < EE; ++q) efs[r * kMaxE + q] = rw.f[i][q];
@@ -895,8 +1010,8 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
         lap(1 + 2 * h);
         named_barrier(1, kConsumers);
         if (!GCL) {
-          head_pass<false, 2>(stash, dpre1, whf, g, em, bh, norm, node0, e0, nrows, NL, H, h,
-                              dhead, part, warp, lane);
+          head_pass<false, 2, WIDE>(stash, dpre1, whf, g, em, bh, norm, node0, e0, nrows, nsrc,
+                                    H, h, dhead, part, warp, lane, N, j0);
         } else if (h == 0) {
           // The first half's pre1 into dpre1, by rows.
 #pragma unroll 1
@@ -919,8 +1034,8 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
     if (GCL) {
       // The second product reads each row of dpre1 in the warps that
       // compute its accumulators.
-      head_pass<true, 4>(stash, dpre1, whf, g, em, bh, norm, node0, e0, nrows, NL, H, 0, dhead,
-                         part, warp, lane);
+      head_pass<true, 4, WIDE>(stash, dpre1, whf, g, em, bh, norm, node0, e0, nrows, nsrc, H, 0,
+                               dhead, part, warp, lane, N, j0);
       named_barrier(1, kConsumers);
     }
     lap(5);
@@ -948,31 +1063,58 @@ edge_mlp_bwd_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, i
         lap(6 + 2 * h);
         stash_acc(acc, stash, r0, t4);
         named_barrier(1, kConsumers);
-        first_layer_pass<EE>(stash, u, v, b0f, wef, efs, des, de, s0, h, node0, (size_t)b * NL,
-                             e0, nrows, NL, H, E, warp, lane);
+        first_layer_pass<EE, WIDE>(stash, u, v, b0f, wef, efs, des, de, s0, h, node0,
+                                   (size_t)b * NL + j0, e0, nrows, nsrc, H, E, warp, lane, N,
+                                   j0);
         named_barrier(1, kConsumers);
         lap(7 + 2 * h);
-        column_sums(stash, efs, h, nodes, NL, H, E, node0, du, dwe,
-                    dvp + ((size_t)b * tpg + tig) * NL * H, tid);
+        if constexpr (WIDE)
+          column_sums_wide(stash, efs, h, nodes, nsrc, H, E, node0, du, dwe,
+                           dvp + (((size_t)b * tpg + tig) * N + j0) * H, tail,
+                           sub == 0 || tail, tid);
+        else
+          column_sums(stash, efs, h, nodes, NL, H, E, node0, du, dwe,
+                      dvp + ((size_t)b * tpg + tig) * NL * H, tid);
         // The stash, the edge scalars and des are written again next.
         named_barrier(1, kConsumers);
         lap(10 + h);
       }
     }
+    }   // sub
   }
 }
 
-// Target nodes a tile for NL source nodes: TI whole target nodes, TI * NL <=
-// kRows.
-int tile_nodes(int NL) { return NL <= kRows / 2 ? kRows / NL : 1; }
-
-// Tiles per graph of N target nodes by NL source nodes.
-int tiles_per_graph(int N, int NL) {
-  const int TI = tile_nodes(NL);
-  return (N + TI - 1) / TI;
+// The kernels: N <= 128, and the wide one (a name of its own in a trace).
+template <bool GCL, int EE>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_mlp_bwd_f32_kernel(MLCG_BWD_PARAMS) {
+  edge_mlp_bwd_f32_body<GCL, EE, false>(MLCG_BWD_ARGS);
 }
 
 template <bool GCL, int EE>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_mlp_bwd_f32_wide_kernel(MLCG_BWD_PARAMS) {
+  edge_mlp_bwd_f32_body<GCL, EE, true>(MLCG_BWD_ARGS);
+}
+
+#undef MLCG_BWD_PARAMS
+#undef MLCG_BWD_ARGS
+
+// Target nodes a tile for N target nodes by NL source nodes: TI whole target
+// nodes, TI * NL <= kRows; past kRows nodes (NL = N) a wide work item's, as
+// many as share the tail tile, at most kMaxPack.
+int tile_nodes(int N, int NL) {
+  if (N > kRows) return min(kMaxPack, kRows / (N - kRows));
+  return NL <= kRows / 2 ? kRows / NL : 1;
+}
+
+// Tiles (wide: work items) per graph of N target nodes by NL source nodes.
+int tiles_per_graph(int N, int NL) {
+  const int TI = tile_nodes(N, NL);
+  return (N + TI - 1) / TI;
+}
+
+template <bool GCL, int EE, bool WIDE>
 cudaError_t launch_bwd(int B, int N, int NL, int H, int E, const float* u, const float* v,
                        const float* ef, const float* em, const float* w_e, int ld_we,
                        const float* b0, const float* w1p, const float* w1tp, const float* b1,
@@ -980,7 +1122,7 @@ cudaError_t launch_bwd(int B, int N, int NL, int H, int E, const float* u, const
                        float* dpre1, float* du, float* dvp, float* de, float* dwe,
                        float* dhead, float* part, int nblk, long long* prof,
                        cudaStream_t stream) {
-  auto kern = edge_mlp_bwd_f32_kernel<GCL, EE>;
+  auto kern = WIDE ? edge_mlp_bwd_f32_wide_kernel<GCL, EE> : edge_mlp_bwd_f32_kernel<GCL, EE>;
   // The shared-memory limit is raised once per device and instantiation.
   static bool ready[kMaxDevices] = {};
   int dev = 0;
@@ -991,7 +1133,7 @@ cudaError_t launch_bwd(int B, int N, int NL, int H, int E, const float* u, const
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) ready[dev] = true;
   }
-  const int TI = tile_nodes(NL);
+  const int TI = tile_nodes(N, NL);
   const int tpg = tiles_per_graph(N, NL);
   const int ntiles = B * tpg;
   const int nkt = (H + kKT - 1) / kKT;
@@ -1009,12 +1151,21 @@ cudaError_t dispatch_bwd(int B, int N, int NL, int H, int E, const float* u, con
                          float* s0, float* dpre1, float* du, float* dvp, float* de, float* dwe,
                          float* dhead, float* part, int nblk, long long* prof,
                          cudaStream_t s) {
+  if (N > kRows)   // the wide kernel: the square edge set only (checked by the caller)
+    return E <= 2
+        ? launch_bwd<GCL, 2, true>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1,
+                                   wh, bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part,
+                                   nblk, prof, s)
+        : launch_bwd<GCL, kMaxE, true>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp,
+                                       b1, wh, bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead,
+                                       part, nblk, prof, s);
   return E <= 2
-      ? launch_bwd<GCL, 2>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1, wh, bh,
-                           norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part, nblk, prof, s)
-      : launch_bwd<GCL, kMaxE>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1, wh,
-                               bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part, nblk,
-                               prof, s);
+      ? launch_bwd<GCL, 2, false>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1, wh,
+                                  bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part, nblk,
+                                  prof, s)
+      : launch_bwd<GCL, kMaxE, false>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, w1tp, b1,
+                                      wh, bh, norm, g, s0, dpre1, du, dvp, de, dwe, dhead, part,
+                                      nblk, prof, s);
 }
 
 bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
@@ -1023,21 +1174,24 @@ bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0;
 
 extern "C" {
 
-// Largest number of nodes the kernel takes; the Python wrapper checks against it.
-int mlcg_edge_mlp_bwd_f32_max_nodes() { return kRows; }
+// Largest number of nodes the kernel takes (j-slabs: kRows); the Python
+// wrapper checks against it.
+int mlcg_edge_mlp_bwd_f32_max_nodes() { return kMaxNodes; }
 // Bytes of one packed W1 tile, floats of a block's row of `part` (dwh by
 // consumer warp, kMaxHidden each), clock slots per block of `prof`.
 int mlcg_edge_mlp_bwd_f32_w1_tile_bytes() { return kWTileBytes; }
 int mlcg_edge_mlp_bwd_f32_part_floats() { return kPartFloats; }
 int mlcg_edge_mlp_bwd_f32_prof_slots() { return kProfSlots; }
-// Tiles per graph of N target nodes by NL source nodes: the second axis of
-// the dv partials.
+// Tiles (wide: work items) per graph of N target nodes by NL source nodes:
+// the second axis of the dv partials.
 int mlcg_edge_mlp_bwd_f32_tiles_per_graph(int N, int NL) {
-  return N > 0 && NL > 0 ? tiles_per_graph(N, NL) : 0;
+  return N > 0 && NL > 0 && N <= kMaxNodes && (N <= kRows || NL == N) ? tiles_per_graph(N, NL)
+                                                                      : 0;
 }
 
 // mode: 0 = gcl, 1 = coord. All operands float32. N target nodes and NL
-// source nodes a graph, 0 < NL <= N <= 128 (NL = N: the square edge set).
+// source nodes a graph, 0 < NL <= N <= 128 (NL = N: the square edge set), or
+// 128 < N = NL <= 192 (the wide kernel).
 // u: (B, N, H) and v: (B, NL, H), 16-byte aligned; ef: (B, N*NL, E);
 // em: (B, N*NL) (gcl only); w_e: (H, E) with row stride ld_we; b0, b1, wh:
 // (H,); bh: (1,) or null; w1p, w1tp: pack_w1(W1) and pack_w1(W1^T)
@@ -1045,7 +1199,8 @@ int mlcg_edge_mlp_bwd_f32_tiles_per_graph(int N, int NL) {
 // coord. H a multiple of 4, at most 448; E <= 4.
 // Outputs, all written in full, 16-byte aligned:
 //   s0: (B*N*NL, H + 4), s0 then 1, 0, 0, 0 on each row; dpre1: (B*N*NL, H)
-//   (so that [dW1 | db1] = dpre1^T s0[:, :H + 1]);
+//   (so that [dW1 | db1] = dpre1^T s0[:, :H + 1]; rows by edge, or for the
+//   wide kernel in its tiles' order);
 //   du: (B, N, H); dvp: (B, tpg, NL, H), tpg = tiles_per_graph(N, NL), dv's
 //   partial sums; de: (B, N*NL, E); dwe: (B, N, E, H), sum_j dpre0_ij e_ij;
 //   dhead: (B*N*NL,).
@@ -1063,7 +1218,8 @@ int mlcg_edge_mlp_bwd_f32(int mode, int B, int N, int NL, int H, int E, const vo
                           const void* wh, const void* bh, float norm, const void* g, void* s0,
                           void* dpre1, void* du, void* dvp, void* de, void* dwe, void* dhead,
                           void* part, int nblk, void* prof, void* stream) {
-  if (B <= 0 || N <= 0 || N > kRows || NL <= 0 || NL > N || H <= 0 || H > kMaxHidden ||
+  if (B <= 0 || N <= 0 || N > kMaxNodes || (N > kRows && NL != N) || NL <= 0 || NL > N ||
+      H <= 0 || H > kMaxHidden ||
       H % 4 != 0 || E < 0 || E > kMaxE || nblk <= 0 || !aligned(u, 16) || !aligned(v, 16) || !aligned(w1p, 16) ||
       !aligned(w1tp, 16) || !aligned(s0, 16) || !aligned(dpre1, 16) || !aligned(du, 16) ||
       !aligned(dvp, 16) || !aligned(dwe, 16) || !aligned(part, 16))

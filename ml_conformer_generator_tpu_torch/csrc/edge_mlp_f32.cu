@@ -21,7 +21,8 @@
 // Tiles and blocks are the bf16 kernel's: a persistent block (one per SM) walks
 // tiles of TI whole target nodes of one graph, TI * NL <= 128 edge rows, as two
 // 64-row wgmma m-tiles, one per consumer warpgroup; whole nodes keep the gated
-// j-sum inside the block (no atomics). N <= 128.
+// j-sum inside the block (no atomics). N <= 128 (past it, the wide kernel
+// below).
 //
 // The edge set may be a j-slab (the edge-sharded EGNN of parallel/edge_shard.py
 // gives each rank one): N target nodes i by NL <= N source nodes j, u (B, N, H),
@@ -72,6 +73,24 @@
 // stay at SiLU(0) = 0 and carry zero head weight; rows past a tile's last
 // edge are built as zeros and written nowhere.
 //
+// Graphs of 128 < N <= 192 nodes on the square edge set (all-atom drug
+// molecules: GEOM-Drugs pads its largest, 181 atoms, to 184) take the wide
+// instantiation, edge_mlp_f32_wide_kernel, a name of its own so that a device
+// trace tells its launches apart. Its packing is the bf16 wide kernel's
+// (edge_mlp.cu): a block's work item is TI target nodes of one graph, a tile
+// for each node's source nodes 0..127 and one more for the tails of all TI
+// nodes, source nodes 128..N-1 packed row after row (TI (N - 128) <= 128
+// rows), TI = min(8, 128 / (N - 128), kCarry / H) (N = 184: 2, N = 144: 8 at
+// H <= 420). The gated j-sum runs on across a node's two tiles in f32: each
+// first tile leaves its node's raw sums in shared memory (carry, TI rows of
+// H floats in the room the ring and the stash leave), and the thread that
+// owns a column in the tail tile adds on from there, so each sum is added in
+// the order j = 0, 1, ..., N - 1; no atomics, and two launches are bit-equal.
+// Everything else is the code of the N <= 128 kernel, which the wide one
+// shares as a template of the same body; only a row's edge is reckoned from
+// (node, source node) rather than as the node's rows end to end. j-slabs
+// (NL < N) stay at N <= 128.
+//
 // Interface: a plain C function (mlcg_edge_mlp_f32) that launches on the given
 // stream, allocates nothing, does not synchronise and returns
 // cudaGetLastError(). It is a source of its own so that the two sources build
@@ -87,6 +106,9 @@ constexpr int kMaxHidden = 448;    // H <= 448
 constexpr int kMaxDevices = 64;    // devices whose attributes are cached
 
 constexpr int kRows = 128;                 // edge rows per block tile
+constexpr int kMaxNodes = kRows + 64;      // wide: a node's tail fits one m-tile
+constexpr int kMaxPack = 8;                // wide: target nodes whose tails share a tile
+constexpr int kCarry = 3360;               // wide: floats of carried j-sums (TI H <= kCarry)
 constexpr int kNP = kMaxHidden;            // padded output width
 constexpr int kNH = kNP / 2;               // columns per wgmma (one half)
 constexpr int kNT = kNH / 8;               // 8-column accumulator tiles per half
@@ -108,6 +130,9 @@ constexpr int kOffWe = kOffB0 + kNP * 4;                    // f32[kMaxE][kNP]
 constexpr int kOffGw = kOffWe + kMaxE * kNP * 4;            // f32[kRows]: gate * mask
 constexpr int kOffBar = kOffGw + kRows * 4;                 // 2 * kRing mbarriers
 constexpr int kSmem = kOffBar + 2 * kRing * 8 + 1024;       // + alignment slack
+constexpr int kOffCarry = kOffBar + 2 * kRing * 8;          // wide: f32[TI][H] running j-sums
+constexpr int kSmemWide = kOffCarry + kCarry * 4 + 1024;
+static_assert(kSmemWide <= 232448, "the wide kernel's shared memory exceeds the H100's 227 KB");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -350,21 +375,61 @@ __device__ __forceinline__ void jsum_half(const float* stash, const float* gw, f
   }
 }
 
+// The wide kernel's j-sum of one half: a first tile (one node, source nodes
+// 0..127) leaves its raw sums in the node's row `sub` of carry; the tail tile
+// (the item's nodes, source nodes 128..N-1) takes each node's sums up from
+// its row and adds on, so every sum runs in the order j = 0, 1, ..., N - 1.
+__device__ __forceinline__ void jsum_half_wide(const float* stash, const float* gw, float* out,
+                                               float* carry, int h, int nodes, int nsrc, int H,
+                                               int node0, float norm, int tid, int sub,
+                                               bool tail) {
+  for (int item = tid; item < nodes * (kNH / 4); item += kConsumers) {
+    const int ti = item / (kNH / 4);
+    const int c = 4 * (item - ti * (kNH / 4));
+    const int col = h * kNH + c;
+    if (col >= H) continue;   // H is a multiple of 4
+    float* held = carry + (tail ? ti : sub) * H + col;
+    float4 s = tail ? *reinterpret_cast<const float4*>(held)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 4
+    for (int j = 0; j < nsrc; ++j) {
+      const int r = ti * nsrc + j;
+      const float4 m = *reinterpret_cast<const float4*>(stash + r * kLdS + c);
+      const float w = gw[r];
+      s.x = fmaf(m.x, w, s.x);
+      s.y = fmaf(m.y, w, s.y);
+      s.z = fmaf(m.z, w, s.z);
+      s.w = fmaf(m.w, w, s.w);
+    }
+    if (!tail) {
+      *reinterpret_cast<float4*>(held) = s;
+      continue;
+    }
+    *reinterpret_cast<float4*>(out + (size_t)(node0 + ti) * H + col) =
+        make_float4(s.x / norm, s.y / norm, s.z / norm, s.w / norm);
+  }
+}
+
 // N target nodes, NL source nodes a graph. TI: whole target nodes per
 // 128-row tile. tpg: tiles per graph; a tile holds nodes of one graph. nkt:
 // K-tiles of W1 (ceil(H / 16)). w1p: the packed W1, 2 * nkt tiles of
 // kWTileBytes. prof: null, or kProfSlots clock sums per block (see
-// mlcg_edge_mlp_f32).
-template <bool GCL, int EE>
-__global__ void __launch_bounds__(kThreads, 1)
-edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int ntiles,
-                    const float* __restrict__ u, const float* __restrict__ v,
-                    const float* __restrict__ ef, const float* __restrict__ em,
-                    const float* __restrict__ w_e, int ld_we,
-                    const float* __restrict__ b0, const float* __restrict__ w1p,
-                    const float* __restrict__ b1, const float* __restrict__ wh,
-                    const float* __restrict__ bh, float norm,
-                    float* __restrict__ out, long long* __restrict__ prof) {
+// mlcg_edge_mlp_f32). WIDE (128 < N <= kMaxNodes, NL = N): a tile of tpg is
+// a work item of TI nodes, TI + 1 tiles of rows (see the notes at the top).
+#define MLCG_F32_PARAMS                                                         \
+    int N, int NL, int H, int E, int nkt, int TI, int tpg, int ntiles,         \
+    const float* __restrict__ u, const float* __restrict__ v,                  \
+    const float* __restrict__ ef, const float* __restrict__ em,                \
+    const float* __restrict__ w_e, int ld_we,                                  \
+    const float* __restrict__ b0, const float* __restrict__ w1p,               \
+    const float* __restrict__ b1, const float* __restrict__ wh,                \
+    const float* __restrict__ bh, float norm,                                  \
+    float* __restrict__ out, long long* __restrict__ prof
+#define MLCG_F32_ARGS \
+    N, NL, H, E, nkt, TI, tpg, ntiles, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof
+
+template <bool GCL, int EE, bool WIDE>
+__device__ __forceinline__ void edge_mlp_f32_body(MLCG_F32_PARAMS) {
   extern __shared__ unsigned char smem_raw[];
   // 1024-byte aligned (the swizzle is a function of the address).
   unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -374,6 +439,7 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
   float* b0f = reinterpret_cast<float*>(smem + kOffB0);
   float* wef = reinterpret_cast<float*>(smem + kOffWe);
   float* gw = reinterpret_cast<float*>(smem + kOffGw);
+  float* carry = reinterpret_cast<float*>(smem + kOffCarry);   // WIDE only: [TI][H]
   const uint32_t full = smem_u32(smem + kOffBar);        // kRing barriers
   const uint32_t empty = full + kRing * 8;               // kRing barriers
 
@@ -410,13 +476,17 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
       const uint32_t ring = smem_u32(smem + kOffRing);
       int s = 0;
       uint32_t ph = 0;
-      for (int t = 0; t < my_tiles; ++t) {
-        for (int w = 0; w < 2 * nkt; ++w) {
-          mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
-          mbar_expect_tx(full + 8 * s, kWTileBytes);
-          bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes,
-                    kWTileBytes, full + 8 * s);
-          if (++s == kRing) { s = 0; ph ^= 1; }
+      for (int t = 0, tile = blockIdx.x; t < my_tiles; ++t, tile += gridDim.x) {
+        // WIDE: a tile for each of the item's nodes and one for their tails
+        const int rounds = WIDE ? min(TI, N - (tile % tpg) * TI) + 1 : 1;
+        for (int round = 0; round < rounds; ++round) {
+          for (int w = 0; w < 2 * nkt; ++w) {
+            mbar_wait(empty + 8 * s, ph ^ 1);   // passes at once on the first round
+            mbar_expect_tx(full + 8 * s, kWTileBytes);
+            bulk_load(ring + s * kWTileBytes, src + (size_t)w * kWTileBytes,
+                      kWTileBytes, full + 8 * s);
+            if (++s == kRing) { s = 0; ph ^= 1; }
+          }
         }
       }
     }
@@ -447,10 +517,23 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int b = tile / tpg;                     // the tile's graph
     const int i0 = (tile - b * tpg) * TI;         // its first target node
-    const int nodes = min(TI, N - i0);
-    const int node0 = b * N + i0;
-    const int nrows = nodes * NL;                 // real rows of this tile
-    const size_t e0 = (size_t)node0 * NL;         // first edge of this tile
+    const int item_nodes = min(TI, N - i0);
+#pragma unroll 1
+    for (int sub = 0; sub < (WIDE ? item_nodes + 1 : 1); ++sub) {
+    // WIDE: tile sub < item_nodes holds node i0 + sub's source nodes 0..127;
+    // the last, tail, every node's source nodes 128..N-1.
+    const bool tail = WIDE && sub == item_nodes;
+    const int nodes = WIDE && !tail ? 1 : item_nodes;
+    const int node0 = b * N + i0 + (WIDE && !tail ? sub : 0);
+    const int j0 = tail ? kRows : 0;              // the tile's first source node
+    const int nsrc = WIDE ? (tail ? N - kRows : kRows) : NL;
+    const int nrows = nodes * nsrc;               // real rows of this tile
+    const size_t e0 = (size_t)node0 * NL;         // first edge of this tile (not WIDE)
+    // The edge of row r: its node's rows lie end to end (not WIDE), or
+    // (node r / nsrc, source node j0 + r % nsrc).
+    auto edge = [&](int r) -> size_t {
+      return WIDE ? (size_t)(node0 + r / nsrc) * N + j0 + r % nsrc : e0 + r;
+    };
     if (clk) t_prev = clock64();
 
     // 0. This thread's rows: their u and v rows and their edge scalars.
@@ -459,13 +542,13 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + 8 * i;
       rw.ok[i] = r < nrows;
-      const int ti = rw.ok[i] ? r / NL : 0;
-      const int j = rw.ok[i] ? r - ti * NL : 0;
+      const int ti = rw.ok[i] ? r / nsrc : 0;
+      const int j = rw.ok[i] ? r - ti * nsrc : 0;
       rw.u[i] = u + (size_t)(node0 + ti) * H;
-      rw.v[i] = v + ((size_t)b * NL + j) * H;
+      rw.v[i] = v + ((size_t)b * NL + j0 + j) * H;
 #pragma unroll
       for (int q = 0; q < EE; ++q)
-        rw.f[i][q] = (rw.ok[i] && q < E) ? __ldg(ef + (e0 + r) * E + q) : 0.0f;
+        rw.f[i][q] = (rw.ok[i] && q < E) ? __ldg(ef + edge(r) * E + q) : 0.0f;
     }
     load_uv<EE>(uv, rw, 4 * t4, H);
     lap(0);
@@ -523,19 +606,22 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
 
     if (!GCL) {
       if (t4 == 0) {
-        if (r0 < nrows) out[e0 + r0] = hd0;
-        if (r0 + 8 < nrows) out[e0 + r0 + 8] = hd1;
+        if (r0 < nrows) out[edge(r0)] = hd0;
+        if (r0 + 8 < nrows) out[edge(r0 + 8)] = hd1;
       }
     } else {
       // 3. gate * mask per row, then the j-sum of the first half from the
       //    stash; the second half's m2 goes over it and is summed in turn.
       if (t4 == 0) {
-        gw[r0] = r0 < nrows ? __fdividef(1.0f, 1.0f + __expf(-hd0)) * em[e0 + r0] : 0.0f;
+        gw[r0] = r0 < nrows ? __fdividef(1.0f, 1.0f + __expf(-hd0)) * em[edge(r0)] : 0.0f;
         gw[r0 + 8] = r0 + 8 < nrows
-            ? __fdividef(1.0f, 1.0f + __expf(-hd1)) * em[e0 + r0 + 8] : 0.0f;
+            ? __fdividef(1.0f, 1.0f + __expf(-hd1)) * em[edge(r0 + 8)] : 0.0f;
       }
       named_barrier(1, kConsumers);
-      jsum_half(stash, gw, out, 0, nodes, NL, H, node0, norm, tid);
+      if constexpr (WIDE)
+        jsum_half_wide(stash, gw, out, carry, 0, nodes, nsrc, H, node0, norm, tid, sub, tail);
+      else
+        jsum_half(stash, gw, out, 0, nodes, NL, H, node0, norm, tid);
       lap(5);
       named_barrier(1, kConsumers);
 #pragma unroll
@@ -547,39 +633,69 @@ edge_mlp_f32_kernel(int N, int NL, int H, int E, int nkt, int TI, int tpg, int n
             make_float2(acc[4 * nt + 2], acc[4 * nt + 3]);
       }
       named_barrier(1, kConsumers);
-      jsum_half(stash, gw, out, 1, nodes, NL, H, node0, norm, tid);
-      // The next tile rewrites the stash and gw.
+      if constexpr (WIDE)
+        jsum_half_wide(stash, gw, out, carry, 1, nodes, nsrc, H, node0, norm, tid, sub, tail);
+      else
+        jsum_half(stash, gw, out, 1, nodes, NL, H, node0, norm, tid);
+      // The next tile rewrites the stash and gw (WIDE: the tail tile reads
+      // the carry its item's first tiles wrote).
       named_barrier(1, kConsumers);
     }
     lap(6);
+    }   // sub
   }
 }
 
+// The kernels: N <= 128, and the wide one (a name of its own in a trace).
 template <bool GCL, int EE>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_mlp_f32_kernel(MLCG_F32_PARAMS) {
+  edge_mlp_f32_body<GCL, EE, false>(MLCG_F32_ARGS);
+}
+
+template <bool GCL, int EE>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_mlp_f32_wide_kernel(MLCG_F32_PARAMS) {
+  edge_mlp_f32_body<GCL, EE, true>(MLCG_F32_ARGS);
+}
+
+#undef MLCG_F32_PARAMS
+#undef MLCG_F32_ARGS
+
+// Target nodes of a wide work item: as many as share the tail tile (at most
+// kMaxPack), and as carry holds at width H.
+int wide_nodes(int N, int H) {
+  const int by_rows = kRows / (N - kRows), by_carry = kCarry / H;
+  return min(kMaxPack, min(by_rows, by_carry));
+}
+
+template <bool GCL, int EE, bool WIDE>
 cudaError_t launch_f32(int B, int N, int NL, int H, int E, const void* u, const void* v,
                        const void* ef, const void* em, const void* w_e, int ld_we,
                        const void* b0, const void* w1p, const void* b1,
                        const void* wh, const void* bh, float norm, float* out,
                        long long* prof, cudaStream_t stream) {
-  auto kern = edge_mlp_f32_kernel<GCL, EE>;
-  // The shared-memory limit and the SM count are read once per device.
+  auto kern = WIDE ? edge_mlp_f32_wide_kernel<GCL, EE> : edge_mlp_f32_kernel<GCL, EE>;
+  constexpr int smem = WIDE ? kSmemWide : kSmem;
+  // The shared-memory limit and the SM count are read once per device (and
+  // instantiation).
   static int sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int n_sm = dev < kMaxDevices ? sms[dev] : 0;
   if (n_sm == 0) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
     if (dev < kMaxDevices) sms[dev] = n_sm;
   }
-  const int TI = NL <= kRows / 2 ? kRows / NL : 1;
+  const int TI = WIDE ? wide_nodes(N, H) : NL <= kRows / 2 ? kRows / NL : 1;
   const int tpg = (N + TI - 1) / TI;
   const int ntiles = B * tpg;
   const int nkt = (H + kKT - 1) / kKT;
-  kern<<<ntiles < n_sm ? ntiles : n_sm, kThreads, kSmem, stream>>>(
+  kern<<<ntiles < n_sm ? ntiles : n_sm, kThreads, smem, stream>>>(
       N, NL, H, E, nkt, TI, tpg, ntiles, (const float*)u, (const float*)v, (const float*)ef,
       (const float*)em, (const float*)w_e, ld_we, (const float*)b0, (const float*)w1p,
       (const float*)b1, (const float*)wh, (const float*)bh, norm, out, prof);
@@ -592,9 +708,13 @@ cudaError_t dispatch_f32(int B, int N, int NL, int H, int E, const void* u, cons
                          const void* b0, const void* w1p, const void* b1,
                          const void* wh, const void* bh, float norm, float* out,
                          long long* prof, cudaStream_t s) {
+  if (N > kRows)   // the wide kernel: the square edge set only (checked by the caller)
+    return E <= 2
+        ? launch_f32<GCL, 2, true>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s)
+        : launch_f32<GCL, kMaxE, true>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
   return E <= 2
-      ? launch_f32<GCL, 2>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s)
-      : launch_f32<GCL, kMaxE>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
+      ? launch_f32<GCL, 2, false>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s)
+      : launch_f32<GCL, kMaxE, false>(B, N, NL, H, E, u, v, ef, em, w_e, ld_we, b0, w1p, b1, wh, bh, norm, out, prof, s);
 }
 
 bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0; }
@@ -603,14 +723,16 @@ bool aligned(const void* p, uintptr_t a) { return ((uintptr_t)p & (a - 1)) == 0;
 
 extern "C" {
 
-// Largest number of nodes the kernel takes; the Python wrapper checks against it.
-int mlcg_edge_mlp_f32_max_nodes() { return kRows; }
+// Largest number of nodes the kernel takes (j-slabs: kRows); the Python
+// wrapper checks against it.
+int mlcg_edge_mlp_f32_max_nodes() { return kMaxNodes; }
 // Bytes of one packed W1 tile and clock slots per block of `prof`.
 int mlcg_edge_mlp_f32_w1_tile_bytes() { return kWTileBytes; }
 int mlcg_edge_mlp_f32_prof_slots() { return kProfSlots; }
 
 // mode: 0 = gcl, 1 = coord. All operands float32. N target nodes and NL
-// source nodes a graph, 0 < NL <= N <= 128 (NL = N: the square edge set).
+// source nodes a graph, 0 < NL <= N <= 128 (NL = N: the square edge set), or
+// 128 < N = NL <= 192 (the wide kernel).
 // u: (B, N, H) and v: (B, NL, H), 16-byte aligned; ef: (B, N*NL, E);
 // em: (B, N*NL) (gcl only);
 // w_e: (H, E) with row stride ld_we; b0, b1, wh: (H,); bh: (1,) or null;
@@ -623,15 +745,15 @@ int mlcg_edge_mlp_f32_prof_slots() { return kProfSlots; }
 // int64, to which each block's first thread adds clocks: 0 the tile's rows,
 // 1 and 3 the product of half 0 and 1 (with the A build), 2 and 4 its
 // epilogue, 5 gate and the first half's j-sum, 6 the second half's j-sum
-// and the tile's last barrier.
+// and the tile's last barrier; the wide kernel adds each of its tiles' clocks.
 int mlcg_edge_mlp_f32(int mode, int B, int N, int NL, int H, int E, const void* u,
                       const void* v, const void* ef, const void* em,
                       const void* w_e, int ld_we, const void* b0, const void* w1p,
                       const void* b1, const void* wh, const void* bh, float norm,
                       void* out, void* prof, void* stream) {
-  if (B <= 0 || N <= 0 || N > kRows || NL <= 0 || NL > N || H <= 0 || H > kMaxHidden ||
-      H % 4 != 0 || E < 0 || E > kMaxE || !aligned(u, 16) || !aligned(v, 16) ||
-      !aligned(w1p, 16))
+  if (B <= 0 || N <= 0 || N > kMaxNodes || (N > kRows && NL != N) || NL <= 0 || NL > N ||
+      H <= 0 || H > kMaxHidden || H % 4 != 0 || E < 0 || E > kMaxE || !aligned(u, 16) ||
+      !aligned(v, 16) || !aligned(w1p, 16))
     return (int)cudaErrorInvalidValue;
   if (mode == 0 && em == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -22,14 +22,15 @@ in swizzled shared memory. The f32 kernel takes the product as 3xTF32: each
 operand split into a TF32 part and a TF32 residual, hi.hi + hi.lo + lo.hi,
 which keeps f32 accuracy; its pack holds both parts of W1, and it builds m1
 in registers. The head, the gate and the masked j-sum stay inside the block.
-Both take N <= 128; the bf16 kernel also takes 128 < N <= 192 (all-atom
-drug molecules) under its own kernel name, ``edge_mlp_bf16_wide_kernel``:
-a tile for each target node's first 128 source nodes, one more for the
-tails of up to 8 nodes, the j-sum carried between them in shared memory.
-See the notes at the top of the CUDA sources.
+Both take N <= 128 and, on the square edge set, 128 < N <= 192 (all-atom
+drug molecules) under kernel names of their own, ``edge_mlp_bf16_wide_kernel``,
+``edge_mlp_f32_wide_kernel`` and ``edge_mlp_bwd_f32_wide_kernel``: a tile
+for each target node's first 128 source nodes, one more for the tails of up
+to 8 nodes, the sums that span a node's two tiles carried between them in a
+fixed order. See the notes at the top of the CUDA sources.
 
 The float32 kernels, forward and backward, also take a j-slab of the edge
-set: u for N target nodes, v for N_l <= N source nodes, the edges
+set at N <= 128: u for N target nodes, v for N_l <= N source nodes, the edges
 (B, N * N_l) in the order (i, j). The edge-sharded EGNN
 (``parallel/edge_shard.py``) gives each rank one. The bfloat16 kernel takes
 the square edge set only (N_l = N).
@@ -93,7 +94,7 @@ LAUNCHES: Dict[str, int] = {"gcl": 0, "coord": 0, "gcl_bwd": 0,
                             "coord_bwd": 0}
 #: Forward edge passes per mode since import (or since the caller reset
 #: them), one a forward launch: those at N <= 128 under the mode's name,
-#: those at N > 128 (the bf16 kernel's wide path) under the mode's name and
+#: those at N > 128 (the kernels' wide paths) under the mode's name and
 #: "_wide". Counted, captured and credited as LAUNCHES is; a graph's tally
 #: holds them under "pass." and the key.
 PASSES: Dict[str, int] = {"gcl": 0, "coord": 0, "gcl_wide": 0,
@@ -128,8 +129,9 @@ _NP, _NH, _KT, _KT32, _SLIM = 448, 224, 64, 16, 32
 #: four columns are contiguous in u and v.
 _K_PERM = [4 * (p % 4) + 2 * (p // 8) + (p // 4) % 2 for p in range(_KT32)]
 #: The float32 backward kernel's tiles (edge rows) and consumer warps, each
-#: warp with its own row of the dwh sums.
-_BWD_ROWS, _BWD_WARPS = 128, 8
+#: warp with its own row of the dwh sums; past _BWD_ROWS nodes, the target
+#: nodes of a wide work item whose tails share a tile, at most _WIDE_PACK.
+_BWD_ROWS, _BWD_WARPS, _WIDE_PACK = 128, 8, 8
 
 _libs: Optional[Dict[str, ctypes.CDLL]] = None
 #: (max nodes in f32, max nodes in bf16, max hidden, max edge scalars) the
@@ -323,10 +325,16 @@ def packed_w1(w1: torch.Tensor, backward: bool = False):
 def backward_tiles(N: int, NL: Optional[int] = None) -> Tuple[int, int]:
     """(target nodes a tile, tiles a graph) of the float32 backward kernel
     for graphs of N target nodes by NL source nodes (default N): whole
-    target nodes of one graph, at most 128 edge rows a tile. The dv partials
-    it writes are (B, tiles a graph, NL, H)."""
+    target nodes of one graph, at most 128 edge rows a tile. Past 128 nodes
+    (the square edge set), (target nodes a wide work item, work items a
+    graph): as many nodes as share the tail tile of N - 128 source nodes
+    each, at most 8. The dv partials it writes are (B, tiles a graph, NL,
+    H)."""
     NL = N if NL is None else NL
-    ti = _BWD_ROWS // NL if NL <= _BWD_ROWS // 2 else 1
+    if N > _BWD_ROWS:
+        ti = min(_WIDE_PACK, _BWD_ROWS // (N - _BWD_ROWS))
+    else:
+        ti = _BWD_ROWS // NL if NL <= _BWD_ROWS // 2 else 1
     return ti, -(-N // ti)
 
 
@@ -446,7 +454,8 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 or any(bwd.mlcg_edge_mlp_bwd_f32_tiles_per_graph(n, nl)
                        != backward_tiles(n, nl)[1]
                        for n in range(1, max_n + 1)
-                       for nl in range(1, n + 1))):
+                       for nl in (range(1, n + 1) if n <= TILE_ROWS
+                                  else (n,)))):
             raise RuntimeError("the built backward kernel and this wrapper "
                                "disagree on its layouts")
         _LIMITS = (f32.mlcg_edge_mlp_f32_max_nodes(),
@@ -508,9 +517,9 @@ def fused_edge_pass(u, v, ef, em, w_e, b0, w1, b1, wh, bh, *,
     Returns (B, N, H) for "gcl" (the j-sum over the N_l source nodes),
     (B, N N_l, 1) for "coord", float32 (float64 for float64 CPU inputs).
 
-    On the card float32 takes N <= 128 and bfloat16 N <= 192, both H <=
-    448 with H a multiple of 4 and E <= 4; float32 takes N_l <= N, bfloat16
-    N_l = N only. A float32
+    On the card both types take N <= 192, H <= 448 with H a multiple of 4
+    and E <= 4; float32 takes N_l <= N at N <= 128 and N_l = N past it,
+    bfloat16 N_l = N only. A float32
     call that autograd records is differentiable through the backward
     kernel; the edge mask takes no gradient.
     """
@@ -600,6 +609,9 @@ def _check_operands(u, v, ef, em, w_e, b0, w1, b1, wh, bh, mode):
     if not 0 < NL <= N:
         raise ValueError(f"the float32 kernel takes 0 < N_l <= N source "
                          f"nodes; got N_l={NL}, N={N}")
+    if NL != N and N > TILE_ROWS:
+        raise ValueError(f"the float32 kernel takes j-slabs at N <= "
+                         f"{TILE_ROWS} only; got N_l={NL}, N={N}")
     _check("v", v, (B, NL, H), dt, dev)
     _check("ef", ef, (B, N * NL, E), dt, dev)
     _check("w_e", w_e, (H, E), dt, dev)

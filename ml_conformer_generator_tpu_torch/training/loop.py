@@ -16,7 +16,7 @@ from __future__ import annotations
 import copy
 import functools
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -30,7 +30,7 @@ from ..parallel.mesh import make_mesh
 from ..utils.cuda_graph import GraphCache, step_graph
 from ..utils.metrics import spanned
 from . import step as _step
-from .data import MoleculeDataset, batches, prefetch
+from .data import AllAtomDataset, MoleculeDataset, batches, prefetch
 from .step import init_train_state, make_optimizer, make_train_step
 
 __all__ = ["train"]
@@ -86,7 +86,8 @@ def ema_update_(ema: torch.nn.Module, model: torch.nn.Module, decay: float,
         e.copy_(d * e + (1.0 - d) * p)
 
 
-def train(dataset: MoleculeDataset, *, egnn_cfg: EGNNConfig,
+def train(dataset: Union[MoleculeDataset, AllAtomDataset], *,
+          egnn_cfg: EGNNConfig,
           diff_cfg: Optional[DiffusionConfig] = None, batch_size: int = 64,
           epochs: int = 1, lr: float = 1e-4, seed: int = 0, device=None,
           mesh=None, params=None, checkpoint_path: Optional[str] = None,
@@ -96,7 +97,9 @@ def train(dataset: MoleculeDataset, *, egnn_cfg: EGNNConfig,
           log_fn: Callable[[str], None] = print) -> Dict:
     """Train the EGNN denoiser; returns {params, ema_params, opt_state,
     history}: the trained :class:`EGNNDynamics`, its EMA copy (or None), the
-    :class:`~.step.TrainState` and the logged losses.
+    :class:`~.step.TrainState` and the logged losses. ``dataset``'s
+    batches come padded as it pads them (an :class:`AllAtomDataset`: each
+    to its largest molecule's bucket; the step keeps a graph per shape).
 
     ``mesh``: the (data, edge) mesh of the sharded step (default
     ``make_mesh(device=device)``: every rank on the data axis, on one card
@@ -127,7 +130,8 @@ def train(dataset: MoleculeDataset, *, egnn_cfg: EGNNConfig,
         lr=lr, total_steps=epochs * steps_per_epoch if cosine_lr else 0,
         warmup_steps=warmup_steps)
     state = init_train_state(model, optimizer)
-    step_fn = make_train_step(mesh, egnn_cfg, diff_cfg, optimizer)
+    step_fn = make_train_step(mesh, egnn_cfg, diff_cfg, optimizer,
+                              batch_shapes=dataset.batch_shapes)
 
     ema = None
     if ema_decay > 0:

@@ -44,9 +44,12 @@ from . import loss as _loss
 #: read it too. Not a switch for callers: the loop on the card exists for
 #: comparison only (``chip_smoke.py``'s ``train_loop``).
 _graphed = True
-#: Captured steps kept per step function. A run's batches have one shape
-#: (``data.batches``), so one graph a model; on the H100 a full-width step
-#: at (64, 39) holds its working set in its graph (PERF.md).
+#: Captured steps kept per step function at the least. A run of one batch
+#: shape (``MoleculeDataset``) keeps one graph a model; a run whose batches
+#: take more shapes keeps one a shape (``make_train_step``'s
+#: ``batch_shapes``). The graphs share one memory pool
+#: (``GraphCache(shared_pool=True)``): the pool holds the largest step's
+#: working set, not the sum (PERF.md gives the peak on the H100).
 GRAPHS_KEPT = 2
 
 
@@ -189,7 +192,8 @@ def _data_mean(metrics: Dict[str, torch.Tensor], mesh: Mesh
 
 
 def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
-                    diff_cfg: DiffusionConfig, optimizer=None
+                    diff_cfg: DiffusionConfig, optimizer=None,
+                    batch_shapes: int = 1
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build the sharded train step on ``mesh`` (``parallel.make_mesh``; its
     device is the step's: on one card, ``make_mesh()``).
@@ -212,11 +216,14 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
     axis, as device tensors.
 
     On the card, on the (1, 1) mesh, the device body of the step is a
-    captured CUDA graph, one per model, optimizer and batch shape: the first
-    step of each is eager (the capture's warm-up) and records it, the later
-    ones copy the batch and the draws into it and replay it. A capture that
-    fails raises. The draws are made on the host side of the step, before
-    the replay, as the loop makes them.
+    captured CUDA graph, one per model, optimizer and batch shape, up to
+    ``batch_shapes`` (the shapes the run's batches take: a dataset's
+    ``batch_shapes``) or ``GRAPHS_KEPT``, whichever is more, in one shared
+    memory pool: the first step of each is eager (the capture's warm-up)
+    and records it, the later ones copy the batch and the draws into it and
+    replay it. A capture that fails raises. ``step.graphs`` is the cache of
+    graphs. The draws are made on the host side of the step, before the
+    replay, as the loop makes them.
 
     The forward is ``dynamics_forward_sharded``: the model's forward with
     the rank's edge slab, or on the (1, 1) mesh and any mesh of one edge
@@ -230,7 +237,7 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
     device = mesh.device
     rows, slab = data_sharding(mesh), data_sharding(mesh, None, "edge")
     dynamics_fn = functools.partial(dynamics_forward_sharded, mesh=mesh)
-    graphs = GraphCache(GRAPHS_KEPT)
+    graphs = GraphCache(max(GRAPHS_KEPT, batch_shapes), shared_pool=True)
 
     def body(model, state, *, x, h, node_mask, edge_mask, context, gamma,
              t_int, eps):
@@ -273,6 +280,9 @@ def make_train_step(mesh: Mesh, egnn_cfg: EGNNConfig,
                                "tensor that the captured step reads")
         return _data_mean({"loss": loss, "mean_t": mean_t}, mesh)
 
+    #: the step's captured graphs (``GraphCache.captures_by_key``: captures
+    #: by (model, optimizer, batch shapes))
+    step.graphs = graphs
     return step
 
 

@@ -50,7 +50,15 @@ pool with every intermediate tensor the capture allocated (the allocator
 reuses a block freed within the capture, so this is about one step's
 working set, not the trajectory's). The pool lives as long as the graph.
 :class:`GraphCache` bounds how many graphs are kept (PERF.md gives what a
-sampler's and FIRE's graphs hold on the H100).
+sampler's and FIRE's graphs hold on the H100). A cache made with
+``shared_pool`` captures all its graphs into one pool instead: a later
+capture reuses the blocks an earlier one freed (its intermediates), so the
+pool holds the largest graph's working set and not the sum. That is safe
+for graphs that are never replayed at once, such as a train step's graphs
+by batch shape, replayed one after another on one stream: each replay
+writes its intermediates before it reads them, and what a graph keeps
+(its static inputs and outputs, the gradients it writes) stays allocated
+while the graph lives.
 
 Everything here needs CUDA tensors: a CPU tensor raises. Nothing here
 falls back to running ``fn`` eagerly.
@@ -145,13 +153,16 @@ class CapturedGraph:
 
 def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
             warmup: Optional[Callable] = None,
-            writes: Sequence[torch.Tensor] = ()) -> CapturedGraph:
+            writes: Sequence[torch.Tensor] = (),
+            pool: Optional[tuple] = None) -> CapturedGraph:
     """Record ``fn(**inputs)`` into a CUDA graph over static copies of
     ``inputs`` (CUDA tensors, all on one device), after one eager call of
     ``warmup`` (default ``fn``) on the same copies. ``fn`` must return a
     tensor or a tuple of tensors, make no host synchronisation and read no
     CPU tensor; ``writes``: the tensors other than its inputs that it
-    updates in place. Raises if the capture fails."""
+    updates in place; ``pool``: a memory pool handle to capture into
+    (``torch.cuda.graph_pool_handle()``; default a private pool). Raises if
+    the capture fails."""
     device = _cuda_device(inputs.values())
     static = {name: t.clone() for name, t in inputs.items()}
     caller = torch.cuda.current_stream(device)
@@ -164,7 +175,7 @@ def capture(fn: Callable, inputs: Dict[str, torch.Tensor],
         before = dict(tally)
         kept = gcl_kernel.captured_reads(side.cuda_stream)
         n_kept = len(kept)
-        graph.capture_begin(capture_error_mode="thread_local")
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             outputs = fn(**static)
         except BaseException:
@@ -200,7 +211,8 @@ def step_graph(cache: "GraphCache", key: Hashable, token: Hashable,
     def warm(**static):
         first.append((warmup or fn)(**static))
 
-    graph = cache.get(key, token, lambda: capture(fn, inputs, warm, writes))
+    graph = cache.get(key, token, lambda: capture(fn, inputs, warm, writes,
+                                                  cache.pool_handle()))
     if not first:
         return graph, graph(**inputs), False
     # the warm-up's outputs were made on the capture's side stream
@@ -214,17 +226,30 @@ class GraphCache:
     first out), each valid while the ``token`` it was captured under holds
     (e.g. the weights' storage and version). The twin of the JAX
     generator's dicts of compiled trajectories plus jit's retrace per
-    shape."""
+    shape. ``shared_pool``: :func:`step_graph` captures every graph of the
+    cache into one memory pool (see the notes at the top); for graphs that
+    are never replayed at once."""
 
-    def __init__(self, maxsize: int):
+    def __init__(self, maxsize: int, shared_pool: bool = False):
         self.maxsize = maxsize
-        #: Graphs captured through this cache since it was made.
+        self.shared_pool = shared_pool
+        #: Graphs captured through this cache since it was made, in all and
+        #: by key.
         self.captures = 0
+        self.captures_by_key: Dict[Hashable, int] = {}
+        self._pool = None
         self._graphs: "OrderedDict[Hashable, tuple]" = OrderedDict()
         self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._graphs)
+
+    def pool_handle(self) -> Optional[tuple]:
+        """The memory pool this cache's graphs share (made at the first
+        capture), or None: each graph its own."""
+        if self.shared_pool and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
 
     def get(self, key: Hashable, token: Hashable,
             make: Callable[[], CapturedGraph]) -> CapturedGraph:
@@ -239,6 +264,7 @@ class GraphCache:
             graph = make()
         with self._lock:
             self.captures += 1
+            self.captures_by_key[key] = self.captures_by_key.get(key, 0) + 1
             self._graphs[key] = (token, graph)
             self._graphs.move_to_end(key)
             while len(self._graphs) > self.maxsize:

@@ -178,14 +178,104 @@ def test_bf16_instantiation_is_chosen_by_width(card, H, N1, sizes):
 
 
 def test_f32_kernel_refuses_a_wide_graph(card):
-    """The float32 kernels stay at 128 nodes: a GEOM-Drugs-sized graph
-    raises, naming the limit, before any launch."""
+    """The float32 kernels take at most 192 nodes, and j-slabs at most 128:
+    a larger graph, or a slab of a GEOM-Drugs-sized graph, raises, naming
+    the limit, before any launch."""
     gk.reset_launch_counts()
-    with pytest.raises(ValueError, match="float32 kernel takes N <= 128"):
-        gk.fused_edge_pass(**_inputs(torch.float32, B=2, N=184, H=64)[0],
+    with pytest.raises(ValueError, match="float32 kernel takes N <= 192"):
+        gk.fused_edge_pass(**_inputs(torch.float32, B=2, N=193, H=64)[0],
                            mode="gcl")
+    args, _ = _inputs(torch.float32, B=2, N=184, H=64)
+    NL = 92
+    slab = dict(args, v=args["v"][:, :NL].contiguous(),
+                ef=args["ef"].reshape(2, 184, 184, -1)[:, :, :NL]
+                .reshape(2, 184 * NL, -1).contiguous(),
+                em=args["em"].reshape(2, 184, 184, 1)[:, :, :NL]
+                .reshape(2, 184 * NL, 1).contiguous())
+    with pytest.raises(ValueError, match="j-slabs at N <= 128"):
+        gk.fused_edge_pass(**slab, mode="gcl")
     assert gk.LAUNCHES == {"gcl": 0, "coord": 0, "gcl_bwd": 0,
                            "coord_bwd": 0}
+
+
+# (B, N, H, smallest graph) of the float32 wide paths: the drugs training
+# cell's largest pad at 16 molecules (graphs wholly inside the first slab
+# too) and at 144 nodes, a second slab of one source node, and the most
+# nodes the paths take.
+F32_WIDE_SHAPES = [(16, 184, 256, 24), (64, 144, 256, 24),
+                   (2, 129, 256, 129), (1, 192, 256, 192)]
+
+
+@pytest.mark.parametrize("mode", ["gcl", "coord"])
+@pytest.mark.parametrize("shape", F32_WIDE_SHAPES, ids=str)
+def test_f32_wide_kernels_match_plain(card, mode, shape):
+    """Past 128 nodes the float32 forward and backward kernels' wide paths
+    (``edge_mlp_f32_wide_kernel``, ``edge_mlp_bwd_f32_wide_kernel``)
+    against the plain versions at the N <= 128 bars: the forward within
+    1e-5 + 1e-4 |ref|, du, dv and de likewise, the edge-summed weight
+    gradients within 1e-4 of their largest entry; one launch each, the
+    forward counted as a wide pass; masked rows exactly 0; a second call
+    of each bit-equal to the first."""
+    B, N, H, n_min = shape
+    args, nm = _inputs(torch.float32, B=B, N=N, H=H, seed=N, n_min=n_min)
+    if mode == "coord":
+        args["em"], args["bh"] = None, None
+    gk.reset_launch_counts()
+    out = gk.fused_edge_pass(**args, mode=mode)
+    torch.cuda.synchronize()
+    assert gk.PASSES == {"gcl": 0, "coord": 0,
+                         "gcl_wide": int(mode == "gcl"),
+                         "coord_wide": int(mode == "coord")}
+    ref = gk.fused_edge_pass_reference(**args, mode=mode)
+    assert ((out - ref).abs() <= 1e-5 + 1e-4 * ref.abs()).all()
+    if mode == "gcl" and (nm == 0).any():
+        assert out[nm == 0].abs().max().item() == 0.0
+    assert torch.equal(out, gk.fused_edge_pass(**args, mode=mode))
+    del out, ref
+    rng = np.random.default_rng(N + 1)
+    g_shape = (B, N, H) if mode == "gcl" else (B, N * N, 1)
+    g = torch.tensor(rng.standard_normal(g_shape), dtype=torch.float32,
+                     device="cuda")
+    gk.reset_launch_counts()
+    got = gk.fused_edge_pass_backward(**args, g=g, mode=mode)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == {"gcl": 0, "coord": 0,
+                           "gcl_bwd": int(mode == "gcl"),
+                           "coord_bwd": int(mode == "coord")}
+    again = gk.fused_edge_pass_backward(**args, g=g, mode=mode)
+    ref = gk.fused_edge_pass_backward_reference(**args, g=g, mode=mode)
+    for name, x, y, r in zip(GRAD_NAMES, got, again, ref):
+        if r is None:
+            assert x is None and mode == "coord"
+            continue
+        assert torch.equal(x, y), name
+        err = (x - r).abs()
+        if name in ("du", "dv", "de"):
+            assert (err <= 1e-5 + 1e-4 * r.abs()).all(), (name, err.max())
+        else:
+            assert err.max() <= 1e-4 * r.abs().max(), (name, err.max())
+
+
+def test_f32_wide_kernels_have_names_of_their_own(card):
+    """A device trace names the wide launches apart from the N <= 128
+    ones, in both modes, forward and backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for N in (96, 144):
+            args, _ = _inputs(torch.float32, B=2, N=N, H=256, seed=N)
+            for mode in ("gcl", "coord"):
+                a = args if mode == "gcl" else dict(args, em=None, bh=None)
+                gk.fused_edge_pass(**a, mode=mode)
+                g = (torch.ones(2, N, 256, device="cuda") if mode == "gcl"
+                     else torch.ones(2, N * N, 1, device="cuda"))
+                gk.fused_edge_pass_backward(**a, g=g, mode=mode)
+        torch.cuda.synchronize()
+    pattern = re.compile(r"edge_mlp_(f32|bwd_f32)(_wide)?_kernel<(true|false)")
+    found = {m.groups() for e in prof.key_averages()
+             for m in [pattern.search(e.key)] if m}
+    assert found == {(k, w, gcl) for k in ("f32", "bwd_f32")
+                     for w in (None, "_wide") for gcl in ("true", "false")}
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -200,12 +290,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
         gk.fused_edge_pass(**dict(args, em=None), mode="gcl")
     with pytest.raises(ValueError):
         gk.fused_edge_pass(**dict(args, v=args["v"].cpu()), mode="gcl")
-    # bfloat16 takes at most 192 nodes, float32 128, both H <= 448
+    # both types take at most 192 nodes, both H <= 448
     with pytest.raises(ValueError, match="N <= 192"):
         gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=193, H=64)[0],
                            mode="gcl")
-    with pytest.raises(ValueError, match="N <= 128"):
-        gk.fused_edge_pass(**_inputs(torch.float32, B=1, N=130, H=64)[0],
+    with pytest.raises(ValueError, match="N <= 192"):
+        gk.fused_edge_pass(**_inputs(torch.float32, B=1, N=194, H=64)[0],
                            mode="gcl")
     with pytest.raises(ValueError, match="H <= 448"):
         gk.fused_edge_pass(**_inputs(torch.bfloat16, B=1, N=8, H=452)[0],
@@ -830,6 +920,95 @@ def test_train_step_graph_is_the_loop(card, monkeypatch):
                          batch["context"].cuda(), cfg)
     torch.cuda.synchronize()
     assert len(calls) == 3 * blocks and gk.PACKS == 3 * blocks
+
+
+def test_drugs_train_steps_by_shape_are_the_loop(card, monkeypatch):
+    """EDM GEOM-Drugs' train step on all-atom batches padded to 16 and to
+    136 nodes (the wide float32 kernels, forward and backward), in turns:
+    the graph route keeps one captured graph per shape, in one pool, and
+    replays it when the shape comes again; losses, parameters and
+    gradients equal the loop's bit for bit."""
+    import dataclasses
+
+    from ml_conformer_generator_tpu_torch.chem.mol import Molecule
+    from ml_conformer_generator_tpu_torch.config import edm_geom_drugs
+    from ml_conformer_generator_tpu_torch.models.egnn import EGNNDynamics
+    from ml_conformer_generator_tpu_torch.parallel import make_mesh
+    from ml_conformer_generator_tpu_torch.training import (
+        AllAtomDataset, init_train_state, make_optimizer, make_train_step)
+    from ml_conformer_generator_tpu_torch.training import step as tstep
+
+    egnn_cfg, diff_cfg = edm_geom_drugs("float32", timesteps=10)
+    egnn_cfg = dataclasses.replace(egnn_cfg, hidden_nf=64, n_blocks=2)
+    rng = np.random.default_rng(0)
+    mols = [Molecule(rng.choice([1, 6, 8], size=n),
+                     np.cumsum(rng.standard_normal((n, 3)), 0), [])
+            for n in (9, 14, 5, 12, 131, 20, 60, 8)]
+    ds = AllAtomDataset(mols)
+    feed = [ds.featurize(idx) for idx in ([0, 1, 2, 3], [4, 5, 6, 7])] * 2
+    assert [b["x"].shape[1] for b in feed] == [16, 136, 16, 136]
+    gamma = torch.linspace(-8.0, 8.0, 11)
+    routes = ("graph", "loop")
+    models = {r: EGNNDynamics(egnn_cfg, torch.Generator().manual_seed(0))
+              .cuda() for r in routes}
+    states = {r: init_train_state(m, make_optimizer(lr=1e-3))
+              for r, m in models.items()}
+    steps = {r: make_train_step(make_mesh(device="cuda"), egnn_cfg, diff_cfg,
+                                batch_shapes=ds.batch_shapes)
+             for r in routes}
+    gens = {r: torch.Generator(device="cuda").manual_seed(3) for r in routes}
+    for t, batch in enumerate(feed):
+        got = {}
+        for r in routes:
+            monkeypatch.setattr(tstep, "_graphed", r == "graph")
+            gk.reset_launch_counts()
+            got[r] = steps[r](models[r], states[r], gens[r], batch, gamma)
+            torch.cuda.synchronize()
+            wide = batch["x"].shape[1] > 128
+            assert gk.PASSES["gcl_wide" if wide else "gcl"] == 4, (r, t)
+            assert gk.LAUNCHES["gcl_bwd"] == 2, (r, t)
+        monkeypatch.setattr(tstep, "_graphed", True)
+        assert torch.equal(got["graph"]["loss"], got["loop"]["loss"]), t
+        for p, q in zip(models["graph"].parameters(),
+                        models["loop"].parameters()):
+            assert torch.equal(p, q) and torch.equal(p.grad, q.grad), t
+    graphs = steps["graph"].graphs
+    assert len(graphs) == 2 and graphs.captures == 2
+    assert sorted({n: s for n, s, _ in k[2]}["x"][1]
+                  for k in graphs.captures_by_key) == [16, 136]
+    assert steps["loop"].graphs.captures == 0
+
+
+def test_drugs_training_loop_at_published_widths(card, monkeypatch):
+    """``training.train`` trains EDM GEOM-Drugs at its published widths on
+    an all-atom dataset, each batch padded to its largest molecule's
+    bucket (184 and 144: the wide float32 kernels): one captured graph a
+    batch shape, replayed when the shape comes again; finite losses."""
+    from ml_conformer_generator_tpu_torch.chem.mol import Molecule
+    from ml_conformer_generator_tpu_torch.config import edm_geom_drugs
+    from ml_conformer_generator_tpu_torch.training import AllAtomDataset, loop
+
+    egnn_cfg, diff_cfg = edm_geom_drugs("float32")
+    rng = np.random.default_rng(2)
+    mols = [Molecule(rng.choice([1, 6, 7, 8], size=n),
+                     np.cumsum(rng.standard_normal((n, 3)), 0), [])
+            for n in (181, 30, 140, 44, 25, 60, 33, 96)]
+    steps = []
+    make = loop.make_train_step
+    monkeypatch.setattr(loop, "make_train_step",
+                        lambda *a, **k: steps.append(make(*a, **k))
+                        or steps[-1])
+    out = loop.train(AllAtomDataset(mols), egnn_cfg=egnn_cfg,
+                     diff_cfg=diff_cfg, batch_size=2, epochs=3,
+                     device="cuda", log_every=1, log_fn=lambda s: None,
+                     ema_decay=0.9999, seed=5)
+    assert len(out["history"]) == 12
+    assert np.isfinite([h["loss"] for h in out["history"]]).all()
+    graphs = steps[0].graphs
+    pads = sorted({n: s for n, s, _ in k[2]}["x"][1]
+                  for k in graphs.captures_by_key)
+    assert len(pads) == len(graphs) == graphs.captures >= 4
+    assert pads[-1] == 184 and set(pads) <= {32, 40, 48, 64, 96, 144, 184}
 
 
 @pytest.mark.parametrize("batch_size", [0, 3], ids=["full", "sampled"])
